@@ -8,9 +8,10 @@ Run it from the root of a checkout on a machine with a CUDA card, nvcc
 each (timings beside the card's name and power limit):
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. build the three kernels from ``csrc/`` (seconds);
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the serving path, with the tolerance stated beside it;
+2. build the kernels' four sources from ``csrc/``, one nvcc each, all
+   started together (seconds);
+3. K1, K4 and K5 against their plain PyTorch versions on the card, at the
+   shapes of the serving path, with the tolerance stated beside each;
 4. the serving path itself: ``Enhancer(fused_stft=True)`` on a full-width
    ``TSCNet(64, 201, fused_attention=True)`` (seeded random weights)
    enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32; the
@@ -18,8 +19,24 @@ each (timings beside the card's name and power limit):
    same weights run through the plain path; every kernel's launch count
    over that run must be > 0;
 5. kernel path against plain path for ``enhance_batch`` on [32, 32000]
-   (CUDA events, warm-up, median), and each kernel against its plain
-   version.
+   (CUDA events, warm-up, median), and K1, K4, K5 against their plain
+   versions;
+6. K2 (the Shaw-attention backward, through the autograd route whose
+   forward is K1) and K6 (the axis swap, forward and backward) against
+   their plain versions at training shapes;
+7. the training path itself: ``make_fused_gan_train_step`` (generator
+   step, host PESQ labels from the native engine, self-correcting
+   discriminator step) on a full-width ``TSCNet(64, 201,
+   fused_attention=True)`` and ``Discriminator(16)``, arch scp, MSE,
+   SGD-Nesterov lr 0.01 (discriminator 0.02), batches of 8 x 1 s
+   tone-plus-noise; fp32 and bf16 steps, finite losses, a falling
+   generator loss on one repeated batch, K1 and K2 launched; one step of
+   the kernel path against the plain path (``fused_attention=False``), and
+   one with ``fused_relayout=True`` (K6 launched);
+8. training timings (CUDA events, median after warm-up): generator step,
+   host labels, discriminator step, whole step, kernel path against plain
+   path, fp32 and bf16; K2 and K6 against their plain versions; peak
+   device memory of a step with and without rematerialization.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
@@ -36,11 +53,13 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 SEED = 0
+SR = 16000
 FAILURES: list[str] = []
 
 
@@ -99,6 +118,274 @@ def chunked(fn, chunk, *args):
                       for i in range(0, b, chunk)])
 
 
+def rel_rms_t(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative RMS of two tensors, computed in float64 on their device."""
+    got, want = got.double(), want.double()
+    return float(((got - want).pow(2).mean() / want.pow(2).mean()).sqrt())
+
+
+def make_batches(rng, n: int, batch: int = 8, length: int = SR):
+    """Tone-plus-noise batches on the card (voiced energy for PESQ), one
+    pitch per step, as scripts/bench_train_step.py makes them."""
+    t = np.arange(length) / SR
+    out = []
+    for i in range(n):
+        tone = (0.3 * np.sin(2 * np.pi * (160.0 + 10.0 * (i % 7)) * t)
+                * (0.55 + 0.45 * np.sin(2 * np.pi * 3.1 * t)))
+        clean = np.stack([tone * (1.0 + 0.01 * j) for j in range(batch)])
+        noisy = clean + 0.05 * rng.standard_normal((batch, length))
+        out.append(tuple(torch.from_numpy(a.astype(np.float32)).cuda() for a in (clean, noisy)))
+    return out
+
+
+def read_grads(opt, module) -> dict:
+    """Wrap ``opt.step`` so that it first copies every gradient it takes."""
+    names = [n for n, _ in module.named_parameters()]
+    grads: dict = {}
+    step = opt.step
+
+    def step_reading_grads():
+        grads.update((n, p.grad.clone()) for n, p in zip(names, opt.params))
+        step()
+
+    opt.step = step_reading_grads
+    return grads
+
+
+def training_phases(card: str, gen: torch.Generator) -> dict:
+    """Phases 6-8: K2 and K6 against their plain versions, the training
+    path through ``make_fused_gan_train_step``, and its timings.  Returns
+    the launch counts, errors and times of K2 and K6 (and K1's count)."""
+    from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_relayout as fr
+    from speech_enhancement_tpu_torch.train import (
+        create_gan_state,
+        gan_discriminator_step,
+        gan_generator_step,
+        l2_loss,
+        make_fused_gan_train_step,
+    )
+    from speech_enhancement_tpu_torch.train.gan import host_pesq_labels
+
+    errs = {"K2": 0.0, "K6": 0.0}
+    ms = {}
+
+    # 6. K2 and K6 against their plain versions, at training shapes
+    print("[6 training kernels vs plain] K2 fp32: dq, dk, dv within rtol 1e-4 + atol 1e-5 "
+          "(summation order), dtable relative RMS < 1e-5 (fp32 atomics); bf16: relative "
+          "RMS < 1e-2 for each (roundings of P and dS*scale may flip); K6 exact", flush=True)
+    both = (torch.float32, torch.bfloat16)
+    names = ("dq", "dk", "dv", "dtable")
+    # B' = 808 n = 161: the time conformer of batch 8 x 1 s; n = 1281: the
+    # length at which the JAX package took K3; max_pos_emb 8: clipped
+    # table rows; then the other head dims K2 is built for
+    for b, n, max_pos, d in ((808, 161, 512, 16), (8, 1281, 512, 16), (3, 100, 8, 16),
+                             (8, 1281, 8, 16), (6, 70, 512, 4), (6, 70, 512, 8),
+                             (6, 70, 512, 32)):
+        for dtype in both:
+            q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
+            g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+            out = fa.fused_shaw_attention(*leaves, max_pos)
+            got = torch.autograd.grad(out, leaves, g)
+            want = fa.shaw_attention_bwd_reference(q, k, v, table, g, max_pos)
+            torch.cuda.synchronize()
+            report = []
+            ok = all(a.dtype == dtype and a.shape == w.shape for a, w in zip(got, want))
+            for name, a, w in zip(names, got, want):
+                err = float((a.float() - w.float()).abs().max())
+                errs["K2"] = max(errs["K2"], err)
+                rr = rel_rms_t(a, w)
+                if dtype == torch.bfloat16:
+                    ok = ok and rr < 1e-2
+                elif name == "dtable":
+                    ok = ok and rr < 1e-5
+                else:
+                    ok = ok and within(a, w, 1e-4, 1e-5)[1]
+                report.append(f"{name} {err:.2e}/{rr:.1e}")
+            check(ok, f"K2 B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: max abs err"
+                      f"/relative RMS {', '.join(report)}")
+            del q, k, v, table, g, leaves, out, got, want
+        torch.cuda.empty_cache()
+    for shape in ((8, 101, 161, 64), (32, 101, 321, 64)):  # [B, F, T, C] of 1 s and 2 s
+        for dtype in both:
+            x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
+            y = fr.swap_seq_axes(x)
+            gy = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+            (gx,) = torch.autograd.grad(y, x, gy)
+            y = y.detach()
+            want_y, want_gx = x.detach().transpose(1, 2).contiguous(), gy.transpose(1, 2)
+            torch.cuda.synchronize()
+            err = max(float((y - want_y).abs().max()), float((gx - want_gx).abs().max()))
+            errs["K6"] = max(errs["K6"], err)
+            check(torch.equal(y, want_y) and torch.equal(gx, want_gx) and y.is_contiguous(),
+                  f"K6 swap {list(shape)} {dtype} forward and backward: exact (max abs err {err})")
+    del x, y, gy, gx, want_y, want_gx
+    torch.cuda.empty_cache()
+
+    # 7. the training path, through the entry point a user calls
+    def new_state(fused_attention=True, fused_relayout=False, remat=True):
+        gen_model = TSCNet(64, 201, fused_attention=fused_attention,
+                           fused_relayout=fused_relayout, remat=remat, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED))
+        disc = Discriminator(16, device="cuda", generator=torch.Generator().manual_seed(SEED + 1))
+        # main_gan's defaults: SGD-Nesterov, momentum 0.9, decay 0.01, disc lr 2x
+        return create_gan_state(gen_model, disc, "sgd", 0.01, momentum=0.9, weight_decay=0.01)
+
+    rng = np.random.default_rng(SEED)
+    batches = make_batches(rng, 4)
+    steps = {dtype: make_fused_gan_train_step(criterion=l2_loss, arch="scp",
+                                              compute_dtype=None if dtype == torch.float32
+                                              else dtype) for dtype in both}
+    states = {dtype: new_state() for dtype in both}
+    fa.launches = fa.bwd_launches = fr.launches = 0
+    t0 = time.perf_counter()
+    history = {dtype: [] for dtype in both}
+    for dtype in both:
+        clean, noisy = batches[0]
+        for i in range(3):  # one repeated batch
+            history[dtype].append(steps[dtype](states[dtype], clean, noisy, i))
+        clean, noisy = batches[1]
+        history[dtype].append(steps[dtype](states[dtype], clean, noisy, 3))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"K1": fa.launches, "K2": fa.bwd_launches}
+    print(f"[7 training path] make_fused_gan_train_step, TSCNet(64, 201, fused_attention=True) "
+          f"+ Discriminator(16), scp, batch 8 x 16000, 4 steps each fp32 and bf16 in "
+          f"{train_s:.2f} s (first calls included); launches {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched {n} times by the training path")
+    for dtype in both:
+        values = [{k: float(v) for k, v in m.items()} for m in history[dtype]]
+        check(all(np.isfinite(x) for m in values for x in m.values()),
+              f"{dtype} training: every loss finite")
+        gen_losses = [m["loss"] for m in values[:3]]
+        check(gen_losses[-1] < gen_losses[0],
+              f"{dtype} generator loss on one repeated batch falls: "
+              f"{', '.join(f'{x:.5f}' for x in gen_losses)}")
+        print(f"    info {dtype} last step: " + ", ".join(f"{k} {v:.5f}" for k, v in values[-1].items()),
+              flush=True)
+    del states
+
+    # one fp32 step from the same weights, batch and seed: kernel path, and
+    # kernel path with the K6 fold, against the plain path
+    clean, noisy = batches[2]
+    runs = {}
+    for label, fused_attention, fused_relayout in (("plain", False, False),
+                                                   ("kernel", True, False),
+                                                   ("kernel+K6", True, True)):
+        state = new_state(fused_attention, fused_relayout)
+        grads = read_grads(state.gen_opt, state.gen)
+        fr.launches = 0
+        metrics = steps[torch.float32](state, clean, noisy, 100)
+        torch.cuda.synchronize()
+        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads, fr.launches)
+        del state
+    k6_launches = runs["kernel+K6"][2]
+    check(k6_launches > 0 and runs["kernel"][2] == 0,
+          f"K6 launched {k6_launches} times by the fused_relayout=True step (0 without)")
+    plain_metrics, plain_grads, _ = runs["plain"]
+    for label in ("kernel", "kernel+K6"):
+        metrics, grads, _ = runs[label]
+        gen_keys = ("loss_ri", "loss_mag", "time_loss", "gan_loss", "loss")
+        loss_ok = all(abs(metrics[k] - plain_metrics[k]) <= 1e-4 * abs(plain_metrics[k])
+                      for k in gen_keys)
+        flat = [torch.cat([d[k].reshape(-1) for k in plain_grads]) for d in (grads, plain_grads)]
+        grad_err = rel_rms_t(*flat)
+        # leaves whose gradient is an exact zero (conv biases in front of a
+        # norm) carry rounding only, and are left out of the worst leaf
+        largest = max(float(g.double().pow(2).mean().sqrt()) for g in plain_grads.values())
+        worst = max(rel_rms_t(grads[k], plain_grads[k]) for k in plain_grads
+                    if float(plain_grads[k].double().pow(2).mean().sqrt()) > 1e-6 * largest)
+        check(loss_ok and grad_err < 1e-3,
+              f"fp32 step, {label} path vs plain path: generator losses within rtol 1e-4, "
+              f"gradients relative RMS {grad_err:.2e} (bound 1e-3; worst leaf {worst:.2e}); "
+              f"disc_loss {metrics['disc_loss']:.6f} vs {plain_metrics['disc_loss']:.6f} "
+              f"(PESQ labels of the two estimates)")
+    del runs, plain_grads
+    torch.cuda.empty_cache()
+
+    # 8. timings
+    print(f"[8 training timings] CUDA events, median of 3 after a warm-up step; card {card}",
+          flush=True)
+
+    def phase_times(state, compute_dtype):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        times = []
+        for i in range(4):
+            clean, noisy = batches[i % len(batches)]
+            events[0].record()
+            aux = gan_generator_step(state, clean, noisy, i, criterion=l2_loss,
+                                     compute_dtype=compute_dtype)
+            events[1].record()
+            ref = aux.clean_audio
+            labels = [host_pesq_labels(ref, other) for other in
+                      (aux.est_audio, ref, aux.noisy_audio)]
+            events[2].record()
+            gan_discriminator_step(state, aux, *labels, i, criterion=l2_loss)
+            events[3].record()
+            events[3].synchronize()
+            if i:  # the first is the warm-up
+                times.append([events[j].elapsed_time(events[j + 1]) for j in range(3)]
+                             + [events[0].elapsed_time(events[3])])
+        return [statistics.median(t[j] for t in times) for j in range(4)]
+
+    for dtype in both:
+        compute_dtype = None if dtype == torch.float32 else dtype
+        order = (("kernel", True), ("plain", False), ("plain", False), ("kernel", True))
+        collected = {"kernel": [], "plain": []}
+        for label, fused_attention in order:
+            state = new_state(fused_attention)
+            collected[label].append(phase_times(state, compute_dtype))
+            del state
+        for label, runs_ in collected.items():
+            med = [statistics.median(r[j] for r in runs_) for j in range(4)]
+            print(f"    training step {dtype} {label} path: generator {med[0]:.3f} ms, host "
+                  f"labels {med[1]:.3f} ms, discriminator {med[2]:.3f} ms, whole step "
+                  f"{med[3]:.3f} ms ({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    for b, n in ((808, 161), (3232, 321)):
+        q, k, v, table = attention_operands(b, n, torch.bfloat16, gen)
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, 0.25, with_lse=True)
+        pair = time_pair(lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g),
+                         lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
+                         warmup=1, reps=6)
+        if b == 808:
+            ms["K2"] = pair
+        print(f"    K2 B'={b} n={n} bf16: kernel {pair[0]:.3f} ms, plain backward "
+              f"{pair[1]:.3f} ms ({card})", flush=True)
+        del q, k, v, table, g, out, lse
+        torch.cuda.empty_cache()
+    for shape in ((8, 101, 161, 64), (32, 101, 321, 64)):
+        x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        pair = time_pair(lambda: fr.swap_seq_axes(x), lambda: fr.swap_seq_axes_reference(x))
+        if shape[0] == 8:
+            ms["K6"] = pair
+        print(f"    K6 {list(shape)} bf16: kernel {pair[0]:.3f} ms, transpose().contiguous() "
+              f"{pair[1]:.3f} ms ({card})", flush=True)
+    del x
+
+    clean, noisy = batches[0]
+    for remat in (True, False):
+        state = new_state(remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gan_generator_step(state, clean, noisy, 0, criterion=l2_loss,
+                           compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"    peak device memory of a bf16 generator step, remat={remat}: "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held before it) ({card})", flush=True)
+        del state
+        torch.cuda.empty_cache()
+    return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -107,6 +394,7 @@ def main() -> int:
     from speech_enhancement_tpu_torch.models import TSCNet
     from speech_enhancement_tpu_torch.ops import _native
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_relayout as fr
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -122,13 +410,14 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
           f"matmuls and cuDNN", flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    fs.build()
-    fa.build()
-    print(f"[2 build] stft.cu {_native.build_seconds['stft']:.1f} s, shaw_attention.cu "
-          f"{_native.build_seconds['shaw_attention']:.1f} s, total "
-          f"{time.perf_counter() - t0:.1f} s (nvcc sm_90a)", flush=True)
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for build in [pool.submit(b) for b in (fs.build, fa.build, fa.build_bwd, fr.build)]:
+            build.result()
+    built = ", ".join(f"{name}.cu {sec:.1f} s" for name, sec in _native.build_seconds.items())
+    print(f"[2 build] {built}; wall {time.perf_counter() - t0:.1f} s (nvcc sm_90a, "
+          f"in parallel)", flush=True)
 
     # 3. kernels against their plain versions, main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -264,21 +553,39 @@ def main() -> int:
           f"K5 istft [32, 321, 201]: kernel {ms['K5'][0]:.3f} ms, plain "
           f"{ms['K5'][1]:.3f} ms ({card})", flush=True)
 
+    del x, spec
+    torch.cuda.empty_cache()
+
+    # 6-8. the training path
+    train = training_phases(card, gen)
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     pkg = "speech_enhancement_tpu_torch"
     kernels = [
         {"name": "shaw_attention_fwd", "route": "cuda", "source": f"{pkg}/csrc/shaw_attention.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201"},
+         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
+         "launches": launches["K1"] + train["launches"]["K1"], "max_abs_err": errs["K1"],
+         "ms": ms["K1"][0], "plain_ms": ms["K1"][1]},
+        {"name": "shaw_attention_bwd", "route": "cuda",
+         "source": f"{pkg}/csrc/shaw_attention_bwd.cu",
+         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
+         "launches": train["launches"]["K2"], "max_abs_err": train["errs"]["K2"],
+         "ms": train["ms"]["K2"][0], "plain_ms": train["ms"]["K2"][1]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74"},
+         "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
+         "launches": launches["K4"], "max_abs_err": errs["K4"],
+         "ms": ms["K4"][0], "plain_ms": ms["K4"][1]},
         {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157"},
+         "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
+         "launches": launches["K5"], "max_abs_err": errs["K5"],
+         "ms": ms["K5"][0], "plain_ms": ms["K5"][1]},
+        {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
+         "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
+         "launches": train["launches"]["K6"], "max_abs_err": train["errs"]["K6"],
+         "ms": train["ms"]["K6"][0], "plain_ms": train["ms"]["K6"][1]},
     ]
-    for rec, key in zip(kernels, ("K1", "K4", "K5")):
-        rec.update(launches=launches[key], max_abs_err=errs[key], ms=ms[key][0],
-                   plain_ms=ms[key][1])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -7,10 +7,13 @@ JAX package so that the two can be compared tensor for tensor:
 spectrograms are ``[B, T, F]``, attention operands ``[B, n, heads, d]``.
 
 Layers (bottom-up):
-  csrc/      CUDA C++ kernels (Shaw attention, STFT, iSTFT), built at first use
+  csrc/      CUDA C++ kernels (Shaw attention forward and backward, STFT,
+             iSTFT, axis swap), built at first use
   ops/       STFT/iSTFT DSP, kernel wrappers with their plain PyTorch versions
-  models/    TSCNet (CMGAN generator) as NCHW ``nn.Module``s
-  utils/     JAX-parameter -> state_dict conversion (numpy only)
+  models/    TSCNet (CMGAN generator) and the metric discriminator as NCHW
+             ``nn.Module``s
+  train/     criteria, optimizers, GAN train state and steps (SCP-GAN/CMGAN)
+  utils/     JAX-variable -> state_dict conversion (numpy only)
   enhance.py batched, length-bucketed enhancement serving
 
 Importing the package touches no CUDA: kernels are compiled and loaded

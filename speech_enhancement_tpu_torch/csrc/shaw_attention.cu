@@ -7,7 +7,11 @@
 //
 // for all heads, with q, k, v read as [B, n, h*d] rows (the layout the
 // projection Linear writes), logits and softmax in fp32, P rounded to the
-// operand dtype before P.V, and an fp32 accumulator.
+// operand dtype before P.V, and an fp32 accumulator.  When the caller
+// passes an ``lse`` buffer ([B, h, n] fp32), each row's log-sum-exp of the
+// scaled logits is written there, so that the backward (K2,
+// csrc/shaw_attention_bwd.cu) rebuilds P = exp(s - lse) without a second
+// softmax pass; serving passes none and writes nothing.
 //
 // What bounds it on an H100: at the serving shape (B = 3232 sequences,
 // n = 321, h = 4, d = 16) the three n x n x d contractions are ~128 GFLOP,
@@ -36,32 +40,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cvt.cuh"
+
 namespace {
-
-template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  static __device__ __forceinline__ float to(float v) { return v; }
-  static __device__ __forceinline__ float from(float v) { return v; }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float to(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from(float v) {
-    return __float2bfloat16(v);
-  }
-};
 
 template <typename T, int D, int BM, int BN>
 __global__ void __launch_bounds__(BM)
     shaw_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ table,
-                          T* __restrict__ out, int n, int h, long long q_sb,
+                          T* __restrict__ out, float* __restrict__ lse,
+                          int n, int h, long long q_sb,
                           long long q_sn, long long k_sb, long long k_sn,
                           long long v_sb, long long v_sn, int max_pos,
                           float scale) {
@@ -145,7 +133,7 @@ __global__ void __launch_bounds__(BM)
     for (int lj = 0; lj < BN; ++lj) {
       const float p = expf(s[lj] - m_new);
       l += p;
-      const float pv = Cvt<T>::to(Cvt<T>::from(p));  // P in the v dtype
+      const float pv = round_to<T>(p);  // P in the v dtype
       const float4* vr = reinterpret_cast<const float4*>(vs + lj * D);
 #pragma unroll
       for (int c = 0; c < D4; ++c) {
@@ -164,44 +152,46 @@ __global__ void __launch_bounds__(BM)
     const float inv = 1.f / l;
 #pragma unroll
     for (int c = 0; c < D; ++c) op[c] = Cvt<T>::from(o[c] * inv);
+    if (lse != nullptr)
+      lse[(static_cast<long long>(b) * h + hh) * n + i0 + li] = m + logf(l);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* table,
-           void* out, int batch, int n, int h, long long q_sb, long long q_sn,
-           long long k_sb, long long k_sn, long long v_sb, long long v_sn,
-           int max_pos, float scale, cudaStream_t stream) {
+           void* out, float* lse, int batch, int n, int h, long long q_sb,
+           long long q_sn, long long k_sb, long long k_sn, long long v_sb,
+           long long v_sn, int max_pos, float scale, cudaStream_t stream) {
   constexpr int BM = 64;
   constexpr int BN = D >= 32 ? 32 : 64;  // bounds the s[BN] registers
   const dim3 grid(batch * h, (n + BM - 1) / BM);
   shaw_attention_kernel<T, D, BM, BN><<<grid, BM, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(table),
-      static_cast<T*>(out), n, h, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, max_pos,
-      scale);
+      static_cast<T*>(out), lse, n, h, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+      max_pos, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const void* table, void* out, int batch, int n, int h,
-               long long q_sb, long long q_sn, long long k_sb, long long k_sn,
-               long long v_sb, long long v_sn, int max_pos, float scale,
-               cudaStream_t stream) {
+               const void* table, void* out, float* lse, int batch, int n,
+               int h, long long q_sb, long long q_sn, long long k_sb,
+               long long k_sn, long long v_sb, long long v_sn, int max_pos,
+               float scale, cudaStream_t stream) {
   switch (d) {
     case 4:
-      return launch<T, 4>(q, k, v, table, out, batch, n, h, q_sb, q_sn, k_sb,
-                          k_sn, v_sb, v_sn, max_pos, scale, stream);
+      return launch<T, 4>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
+                          k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
     case 8:
-      return launch<T, 8>(q, k, v, table, out, batch, n, h, q_sb, q_sn, k_sb,
-                          k_sn, v_sb, v_sn, max_pos, scale, stream);
+      return launch<T, 8>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
+                          k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
     case 16:
-      return launch<T, 16>(q, k, v, table, out, batch, n, h, q_sb, q_sn, k_sb,
-                           k_sn, v_sb, v_sn, max_pos, scale, stream);
+      return launch<T, 16>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
+                           k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, table, out, batch, n, h, q_sb, q_sn, k_sb,
-                           k_sn, v_sb, v_sn, max_pos, scale, stream);
+      return launch<T, 32>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
+                           k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -212,19 +202,22 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // q, k, v: [batch, n, h, d] with unit stride over d and stride d over h;
 // the batch and sequence strides (in elements) are given.  table:
 // [2 * max_pos + 1, d] contiguous, in the dtype of q.  out: contiguous
-// [batch, n, h, d] in the dtype of q.  is_bf16 selects bfloat16 over fp32.
+// [batch, n, h, d] in the dtype of q.  lse: null, or [batch, h, n] fp32.
+// is_bf16 selects bfloat16 over fp32.
 extern "C" int se_shaw_attention(const void* q, const void* k, const void* v,
-                                 const void* table, void* out, int is_bf16,
-                                 int batch, int n, int h, int d,
+                                 const void* table, void* out, void* lse,
+                                 int is_bf16, int batch, int n, int h, int d,
                                  long long q_sb, long long q_sn,
                                  long long k_sb, long long k_sn,
                                  long long v_sb, long long v_sn, int max_pos,
                                  float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, table, out, batch, n, h, q_sb,
-                                     q_sn, k_sb, k_sn, v_sb, v_sn, max_pos,
-                                     scale, st);
-  return dispatch_d<float>(d, q, k, v, table, out, batch, n, h, q_sb, q_sn,
-                           k_sb, k_sn, v_sb, v_sn, max_pos, scale, st);
+    return dispatch_d<__nv_bfloat16>(d, q, k, v, table, out,
+                                     static_cast<float*>(lse), batch, n, h,
+                                     q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+                                     max_pos, scale, st);
+  return dispatch_d<float>(d, q, k, v, table, out, static_cast<float*>(lse),
+                           batch, n, h, q_sb, q_sn, k_sb, k_sn, v_sb, v_sn,
+                           max_pos, scale, st);
 }

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from speech_enhancement_tpu_torch.models.layers import Swish
+from speech_enhancement_tpu_torch.models.layers import BatchNorm1d, Swish
 from speech_enhancement_tpu_torch.ops.fused_attention import (
     fused_shaw_attention,
     relative_index,
@@ -119,8 +119,9 @@ class DepthWiseConv1d(nn.Module):
 
 class ConvModule(nn.Module):
     """LayerNorm -> pointwise (2x expansion, doubled for the GLU) -> GLU ->
-    depthwise k=31 padded (15, 15) -> BatchNorm (eval: running stats, eps
-    1e-5) -> swish -> pointwise -> dropout (``conformer.py:153-186``)."""
+    depthwise k=31 padded (15, 15) -> BatchNorm (eps 1e-5; train mode with
+    flax's biased running variance, see ``layers.BatchNorm1d``) -> swish ->
+    pointwise -> dropout (``conformer.py:153-186``)."""
 
     def __init__(self, dim: int, expansion_factor: int = 2, kernel_size: int = 31,
                  dropout: float = 0.0):
@@ -133,7 +134,7 @@ class ConvModule(nn.Module):
             nn.Conv1d(dim, inner * 2, 1),
             nn.GLU(dim=1),
             DepthWiseConv1d(inner, kernel_size, (pad, pad - (kernel_size + 1) % 2)),
-            nn.BatchNorm1d(inner, eps=1e-5),
+            BatchNorm1d(inner, eps=1e-5),
             Swish(),
             nn.Conv1d(inner, dim, 1),
             Transpose(),

@@ -6,16 +6,29 @@ complex ``[B, T, F]`` spectrogram (or an (re, im) pair, so that it can run
 in bf16) and returns ``(real, imag)``, each ``[B, T, F]`` fp32.  Submodule
 names are the reference ``state_dict`` keys ``export_tscnet`` writes, so
 ``load_state_dict(strict=True)`` takes its output.
+
+In training (``model.train()`` with autograd on) each TSCB is
+rematerialized, as the JAX package's ``tscb_stack`` always does: its
+activations are recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from speech_enhancement_tpu_torch.models.conformer import ConformerBlock
-from speech_enhancement_tpu_torch.models.layers import InstanceNorm, PReLU, init_weights_
+from speech_enhancement_tpu_torch.models.layers import (
+    InstanceNorm,
+    PReLU,
+    init_weights_,
+    recomputing,
+)
+from speech_enhancement_tpu_torch.ops.fused_relayout import swap_seq_axes
 from speech_enhancement_tpu_torch.utils.device import resolve_device
 
 
@@ -65,13 +78,21 @@ class TSCB(nn.Module):
     """Time conformer over ``[B*F, T, C]``, then freq conformer over
     ``[B*T, F, C]``, with a residual outside each (``generator.py:109-156``).
     Only the time conformer takes ``fused_attention``; the freq conformer
-    stays eager, as in the JAX package."""
+    stays eager, as in the JAX package.
+
+    ``fused_relayout=True`` runs the fold between the two conformers,
+    ``[B, F, T, C] -> [B, T, F, C]``, through the K6 swap kernel
+    (``ops/fused_relayout.py``), as the JAX package's flag does.  The
+    first fold stays a torch permute: it also moves C from NCHW's axis 1
+    to the minor axis, a fold the channels-last JAX package never has;
+    the last one, back to NCHW, likewise."""
 
     def __init__(self, channels: int = 64, dropout: float = 0.2,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, fused_relayout: bool = False):
         super().__init__()
         kw = dict(dim=channels, dim_head=channels // 4, heads=4,
                   attn_dropout=dropout, ff_dropout=dropout)
+        self.fused_relayout = fused_relayout
         self.time_conformer = ConformerBlock(**kw, fused_attention=fused_attention)
         self.freq_conformer = ConformerBlock(**kw)
 
@@ -79,9 +100,28 @@ class TSCB(nn.Module):
         b, c, t, f = x.shape
         x_t = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
         x_t = self.time_conformer(x_t) + x_t
-        x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).reshape(b * t, f, c)
+        if self.fused_relayout:
+            x_f = swap_seq_axes(x_t.view(b, f, t, c)).view(b * t, f, c)
+        else:
+            x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).reshape(b * t, f, c)
         x_f = self.freq_conformer(x_f) + x_f
         return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
+
+
+def _rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint`` (non-reentrant).  The
+    block's parameters go in as explicit inputs, so that the recompute in
+    the backward sees the tensors the forward saw (a bf16 copy bound by
+    ``torch.func.functional_call`` included, which is unbound by then);
+    dropout masks repeat (checkpoint restores the RNG state) and BatchNorm
+    statistics are updated by the first forward only."""
+    names, params = zip(*block.named_parameters())
+
+    def run(x, *params):
+        return torch.func.functional_call(block, dict(zip(names, params)), (x,))
+
+    return checkpoint(run, x, *params, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class SPConvTranspose2d(nn.Module):
@@ -152,20 +192,24 @@ class TSCNet(nn.Module):
     returns ``(real, imag)``, each ``[B, T, F]`` fp32: the masked magnitude
     recombined with the noisy phase, plus the complex decoder's residual.
     Weights are drawn from ``generator`` (seed 0 when None) on the CPU and
-    then moved to ``device``.
+    then moved to ``device``.  ``remat=False`` keeps the TSCB activations
+    in training instead of recomputing them (more memory, same result).
     """
 
     def __init__(self, num_channel: int = 64, num_features: int = 201,
-                 fused_attention: bool = False, device=None,
+                 fused_attention: bool = False, fused_relayout: bool = False,
+                 remat: bool = True, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.remat = remat
         self.dense_encoder = DenseEncoder(3, num_channel)
         # the four blocks keep the reference's attribute names TSCB_1..4,
         # which are their state_dict keys
-        self.TSCB_1 = TSCB(num_channel, fused_attention=fused_attention)
-        self.TSCB_2 = TSCB(num_channel, fused_attention=fused_attention)
-        self.TSCB_3 = TSCB(num_channel, fused_attention=fused_attention)
-        self.TSCB_4 = TSCB(num_channel, fused_attention=fused_attention)
+        kw = dict(fused_attention=fused_attention, fused_relayout=fused_relayout)
+        self.TSCB_1 = TSCB(num_channel, **kw)
+        self.TSCB_2 = TSCB(num_channel, **kw)
+        self.TSCB_3 = TSCB(num_channel, **kw)
+        self.TSCB_4 = TSCB(num_channel, **kw)
         self.mask_decoder = MaskDecoder(num_features, num_channel)
         self.complex_decoder = ComplexDecoder(num_channel)
         if generator is None:
@@ -183,8 +227,9 @@ class TSCNet(nn.Module):
         x_in = torch.stack([mag32.to(re.dtype), re, im], dim=1)  # [B, 3, T, F]
 
         out = self.dense_encoder(x_in)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for tscb in (self.TSCB_1, self.TSCB_2, self.TSCB_3, self.TSCB_4):
-            out = tscb(out)
+            out = _rematerialized(tscb, out) if remat else tscb(out)
 
         out_mag = self.mask_decoder(out).float() * mag32
         complex_out = self.complex_decoder(out).float()

@@ -1,14 +1,18 @@
 """Shared building blocks (port of speech_enhancement_tpu/models/layers.py).
 
 NCHW / NCL like the reference torch modules; parameter names follow the
-reference ``state_dict`` (``weight``, ``bias``).
+reference ``state_dict`` (``weight``, ``bias``, ``weight_orig``/``weight_u``/
+``weight_v`` under spectral norm, ``slope``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -69,7 +73,7 @@ class InstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(xf, dim=(2, 3), keepdim=True, correction=0)
         y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
         shape = (1, -1, 1, 1)
@@ -83,3 +87,130 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 class Swish(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return swish(x)
+
+
+class LearnableSigmoid(nn.Module):
+    """``beta * sigmoid(slope * x)`` with a learnable per-feature slope
+    (``layers.py:85-95``)."""
+
+    def __init__(self, in_features: int = 1, beta: float = 1.0):
+        super().__init__()
+        self.beta = beta
+        self.slope = nn.Parameter(torch.ones(in_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.beta * torch.sigmoid(self.slope.to(x.dtype) * x)
+
+
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the forward that ``torch.utils.checkpoint`` re-runs during the
+    backward: :class:`BatchNorm1d` leaves its running statistics alone
+    inside it, so a rematerialized step updates them once, as JAX's remat
+    does."""
+    previous = getattr(_remat, "active", False)
+    _remat.active = True
+    try:
+        yield
+    finally:
+        _remat.active = previous
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's train-mode semantics
+    (``conformer.py:180-182``): batch statistics in fp32, normalization by
+    the biased batch variance, and running statistics updated with that
+    same biased variance (torch's own update uses the unbiased one, a
+    factor n / (n - 1) on the batch term), fp32 running statistics under
+    a bf16 input, and no update inside a recompute (:func:`recomputing`).
+    Eval mode is torch's (running statistics)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var, mean = torch.var_mean(xf, dim=(0, 2), correction=0)
+        if not getattr(_remat, "active", False):
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                self.num_batches_tracked.add_(1)
+        y = (xf - mean[:, None]) * torch.rsqrt(var + self.eps)[:, None]
+        y = y * self.weight.to(y.dtype)[:, None] + self.bias.to(y.dtype)[:, None]
+        return y.to(x.dtype)
+
+
+class SpectralNorm(nn.Module):
+    """Spectral normalization with the JAX package's semantics
+    (``layers.py:162-194``): ``weight_orig`` is the parameter; ``weight_u``
+    (size out) and ``weight_v`` (size in, in torch's ``(in, kh, kw)``
+    flattening) are buffers that the forward only reads, so sigma =
+    ``u . (W v)`` comes from the stored pair with gradients through W
+    alone; :meth:`refresh_` runs one power-iteration step.  (torch's
+    ``nn.utils.spectral_norm`` instead steps u on every training forward.)
+    """
+
+    def _init_spectral(self, out_features: int, in_features: int,
+                       generator: torch.Generator) -> None:
+        self.register_buffer("weight_u", torch.randn(out_features, generator=generator))
+        self.register_buffer("weight_v", torch.randn(in_features, generator=generator))
+
+    def _flat(self) -> torch.Tensor:
+        return self.weight_orig.reshape(self.weight_orig.shape[0], -1)
+
+    def normalized_weight(self) -> torch.Tensor:
+        sigma = torch.dot(self.weight_u, self._flat() @ self.weight_v)
+        return self.weight_orig / sigma
+
+    @torch.no_grad()
+    def refresh_(self) -> None:
+        """One power-iteration step on the stored (u, v)."""
+        w = self._flat().float()
+        v = w.t() @ self.weight_u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+        u = w @ v
+        u = u / (torch.linalg.vector_norm(u) + 1e-12)
+        self.weight_u.copy_(u)
+        self.weight_v.copy_(v)
+
+
+class SpectralNormConv2d(SpectralNorm):
+    """Bias-free ``Conv2d`` under :class:`SpectralNorm`
+    (``layers.py:130-159``); kaiming-normal init."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        generator = generator or torch.Generator().manual_seed(0)
+        self.stride, self.padding = stride, padding
+        self.weight_orig = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, kernel_size))
+        kaiming_normal_(self.weight_orig, generator)
+        self._init_spectral(out_channels, in_channels * kernel_size * kernel_size,
+                            generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.normalized_weight().to(x.dtype)
+        return F.conv2d(x, w, stride=self.stride, padding=self.padding)
+
+
+class SpectralNormLinear(SpectralNorm):
+    """``Linear`` under :class:`SpectralNorm` (``layers.py:102-127``);
+    kaiming-normal weight, bias 0.01."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        generator = generator or torch.Generator().manual_seed(0)
+        self.weight_orig = nn.Parameter(torch.empty(out_features, in_features))
+        kaiming_normal_(self.weight_orig, generator)
+        self.bias = nn.Parameter(torch.full((out_features,), 0.01))
+        self._init_spectral(out_features, in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.normalized_weight().to(x.dtype)
+        return F.linear(x, w, self.bias.to(x.dtype))

@@ -2,7 +2,9 @@
 CUDA kernels are compiled by the first wrapper call on a CUDA tensor."""
 
 from speech_enhancement_tpu_torch.ops.stft import (
+    batch_stft,
     compressed_stft,
+    disassemble_spectrogram,
     frame_signal,
     hamming_window,
     istft,
@@ -15,7 +17,9 @@ from speech_enhancement_tpu_torch.ops.stft import (
 )
 
 __all__ = [
+    "batch_stft",
     "compressed_stft",
+    "disassemble_spectrogram",
     "frame_signal",
     "hamming_window",
     "istft",

@@ -10,7 +10,9 @@ The library's file name carries a hash of the sources (the ``.cu`` file
 and every ``csrc/*.cuh``) and of the flags, so an edited source is rebuilt
 and an unchanged one is loaded from ``_build/``.  Nothing here runs at
 import time: the first wrapper call with a CUDA tensor triggers the build.
-A missing compiler or a failed build raises; there is no fallback.
+Different libraries may build at once from several threads (each ``nvcc``
+is its own process); a missing compiler or a failed build raises; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 # seconds spent compiling, by library name (0.0 when loaded from _build/)
 build_seconds: dict[str, float] = {}
 
@@ -64,6 +67,8 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     ``signatures`` maps each C entry point to its ``argtypes``; every entry
     returns an ``int`` (a ``cudaError_t``)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

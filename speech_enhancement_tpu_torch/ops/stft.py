@@ -27,6 +27,8 @@ __all__ = [
     "compressed_stft",
     "uncompressed_istft",
     "normalize_batch",
+    "batch_stft",
+    "disassemble_spectrogram",
 ]
 
 
@@ -183,3 +185,21 @@ def normalize_batch(clean: torch.Tensor, noisy: torch.Tensor):
     c = torch.where(nz, torch.sqrt(noisy.shape[-1] / torch.where(nz, energy, one)),
                     one)
     return clean * c, noisy * c, c
+
+
+def batch_stft(clean: torch.Tensor, noisy: torch.Tensor, n_fft: int = 400,
+               hop: int = 100):
+    """The training featurization bundle (``ops/stft.py:258-267``):
+    RMS-normalize both signals by the noisy gain, power-compress the STFT
+    of both.  Returns ``(clean, noisy, clean_spec, noisy_spec,
+    one_labels)``.  Plain and differentiable, as the JAX training path."""
+    clean, noisy, _ = normalize_batch(clean, noisy)
+    noisy_spec = compressed_stft(noisy, n_fft, hop, comp_type="pow")
+    clean_spec = compressed_stft(clean, n_fft, hop, comp_type="pow")
+    one_labels = torch.ones(clean.shape[0], dtype=clean.dtype, device=clean.device)
+    return clean, noisy, clean_spec, noisy_spec, one_labels
+
+
+def disassemble_spectrogram(spec: torch.Tensor):
+    """(mag, real, imag) of a complex spectrogram (``ops/stft.py:288-290``)."""
+    return spec.abs(), spec.real, spec.imag

@@ -1,9 +1,11 @@
-"""JAX TSCNet parameters -> this package's ``state_dict``, with numpy alone.
+"""JAX TSCNet and Discriminator variables -> this package's ``state_dict``,
+with numpy alone.
 
-The same mapping as ``speech_enhancement_tpu/utils/convert_torch.py::
-export_tscnet`` (``:355-472``), which needs JAX to unstack the scanned
-blocks; this one takes the flax ``params`` and ``batch_stats`` trees as
-nested dicts of numpy arrays, so it runs where JAX is not installed.
+The same mappings as ``speech_enhancement_tpu/utils/convert_torch.py::
+export_tscnet`` (``:452-472``), which needs JAX to unstack the scanned
+blocks, and ``export_discriminator`` (``:475-502``); these take the flax
+variable trees as nested dicts of numpy arrays, so they run where JAX is
+not installed.
 """
 
 from __future__ import annotations
@@ -142,6 +144,35 @@ def conformer_state_dict(params_np: Tree, batch_stats_np: Tree) -> dict[str, tor
     """One flax ``ConformerBlock``'s variables -> ``ConformerBlock`` state_dict."""
     sd: dict = {}
     _conformer(params_np, batch_stats_np, sd, "")
+    return _tensors(sd)
+
+
+def discriminator_state_dict_from_flax(params_np: Tree,
+                                      spectral_np: Tree) -> dict[str, torch.Tensor]:
+    """Flax ``Discriminator`` variables (``params``, ``spectral``; numpy
+    leaves) -> this package's ``Discriminator`` state_dict: SN convs at
+    ``layers.0/3/6/9`` (``weight_orig``, ``weight_u``, ``weight_v``), their
+    InstanceNorm and PReLU one and two after, the SN linears at
+    ``layers.14`` and ``layers.17``, PReLU ``layers.16`` and the sigmoid's
+    ``slope`` at ``layers.18``.  A conv's v is re-flattened from flax's
+    ``(kh, kw, in)`` order to torch's ``(in, kh, kw)``."""
+    sd: dict = {}
+    for i, lid in enumerate((0, 3, 6, 9), start=1):
+        kernel = _f32(params_np[f"conv{i}"]["kernel"])  # [kh, kw, in, out]
+        sd[f"layers.{lid}.weight_orig"] = kernel.transpose(3, 2, 0, 1)
+        sd[f"layers.{lid}.weight_u"] = _f32(spectral_np[f"conv{i}"]["u"])
+        kh, kw, cin, _ = kernel.shape
+        v = _f32(spectral_np[f"conv{i}"]["v"]).reshape(kh, kw, cin)
+        sd[f"layers.{lid}.weight_v"] = v.transpose(2, 0, 1).reshape(-1)
+        _norm(params_np[f"norm{i}"], sd, f"layers.{lid + 1}")
+        _prelu(params_np[f"prelu{i}"], sd, f"layers.{lid + 2}")
+    for name, lid in (("fc1", 14), ("fc2", 17)):
+        sd[f"layers.{lid}.weight_orig"] = _f32(params_np[name]["kernel"]).T
+        sd[f"layers.{lid}.bias"] = _f32(params_np[name]["bias"])
+        sd[f"layers.{lid}.weight_u"] = _f32(spectral_np[name]["u"])
+        sd[f"layers.{lid}.weight_v"] = _f32(spectral_np[name]["v"])
+    _prelu(params_np["prelu_fc"], sd, "layers.16")
+    sd["layers.18.slope"] = _f32(params_np["sigmoid"]["slope"])
     return _tensors(sd)
 
 

@@ -19,6 +19,10 @@ import torch
 from speech_enhancement_tpu.ops.pallas_attention import fused_shaw_attention as jax_fused
 from speech_enhancement_tpu_torch.ops import fused_attention as fa
 
+# one intra-op thread: the pytest-xdist workers share the cores, and with
+# torch's default of a thread per core in each, these tests took 3.5x as long
+torch.set_num_threads(1)
+
 CASES = [  # (n, heads, d, max_pos_emb): n=33 with P=8 clips cheaply
     (7, 2, 8, 512),
     (101, 4, 16, 512),

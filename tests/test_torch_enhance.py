@@ -22,6 +22,10 @@ from speech_enhancement_tpu_torch import enhance
 from speech_enhancement_tpu_torch.models import TSCNet
 from speech_enhancement_tpu_torch.utils.convert import state_dict_from_flax
 
+# one intra-op thread: the pytest-xdist workers share the cores, and with
+# torch's default of a thread per core in each, these tests took 3.5x as long
+torch.set_num_threads(1)
+
 BOUND = 1e-4
 LENGTHS = [3000, 7900, 5000, 2000, 6150]
 

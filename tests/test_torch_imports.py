@@ -2,9 +2,10 @@
 
 The machine with the card has no JAX, flax or yaml, so the port must not
 reach for them; and the kernel modules must import on a host without
-nvcc, building nothing until a wrapper gets a CUDA tensor.  Checked in a
-fresh interpreter, because this test process has JAX loaded
-(tests/conftest.py).
+nvcc, building nothing until a wrapper gets a CUDA tensor.  The training
+modules reach the JAX package's framework-free PESQ engine only inside the
+call that computes labels.  Checked in a fresh interpreter, because this
+test process has JAX loaded (tests/conftest.py).
 """
 
 import json
@@ -21,10 +22,17 @@ MODULES = [
     "speech_enhancement_tpu_torch.ops._native",
     "speech_enhancement_tpu_torch.ops.fused_stft",
     "speech_enhancement_tpu_torch.ops.fused_attention",
+    "speech_enhancement_tpu_torch.ops.fused_relayout",
     "speech_enhancement_tpu_torch.models",
     "speech_enhancement_tpu_torch.models.layers",
     "speech_enhancement_tpu_torch.models.conformer",
     "speech_enhancement_tpu_torch.models.generator",
+    "speech_enhancement_tpu_torch.models.discriminator",
+    "speech_enhancement_tpu_torch.train",
+    "speech_enhancement_tpu_torch.train.criterion",
+    "speech_enhancement_tpu_torch.train.optim",
+    "speech_enhancement_tpu_torch.train.state",
+    "speech_enhancement_tpu_torch.train.gan",
     "speech_enhancement_tpu_torch.utils",
     "speech_enhancement_tpu_torch.utils.convert",
     "speech_enhancement_tpu_torch.utils.device",

@@ -27,6 +27,10 @@ from speech_enhancement_tpu_torch.ops.fused_stft import (
     stft_reference,
 )
 
+# one intra-op thread: the pytest-xdist workers share the cores, and with
+# torch's default of a thread per core in each, these tests took 3.5x as long
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-5
 COMP_ATOL = 5e-5  # compressed spectra, see the module docstring
 
