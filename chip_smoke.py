@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Run it from the root of a checkout on a machine with a CUDA card, nvcc
-(PATH, $CUDA_HOME or /usr/local/cuda) and no JAX needed.  Phases, one line
-each (timings beside the card's name and power limit):
+(PATH, $CUDA_HOME or /usr/local/cuda), g++ and no JAX needed.  Phases, one
+line each (timings beside the card's name and power limit):
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. build the kernels' four sources from ``csrc/``, one nvcc each, all
-   started together (seconds);
-3. K1, K4 and K5 against their plain PyTorch versions on the card, at the
-   shapes of the serving path, with the tolerance stated beside each;
+2. build the six native sources of ``csrc/`` (five CUDA sources and the
+   PESQ engine), one compiler each, all started together (seconds);
+   ptxas's registers and spills of K1's tensor-core instance, and its
+   resident warps per SM;
+3. K1 (both instances), K4 and K5 against their plain PyTorch versions on
+   the card, at the shapes of the serving path, with the tolerance stated
+   beside each; K1's row log-sum-exp against the plain one;
 4. the serving path itself: ``Enhancer(fused_stft=True)`` on a full-width
    ``TSCNet(64, 201, fused_attention=True)`` (seeded random weights)
    enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32; the
@@ -19,13 +22,14 @@ each (timings beside the card's name and power limit):
    same weights run through the plain path; every kernel's launch count
    over that run must be > 0;
 5. kernel path against plain path for ``enhance_batch`` on [32, 32000]
-   (CUDA events, warm-up, median), and K1, K4, K5 against their plain
-   versions;
+   (per call), K1's device time per batch from ``torch.profiler``, and the
+   kernel rows of K1, K4 and K5: device time, per-call time, plain time,
+   bound and library time;
 6. K2 (the Shaw-attention backward, through the autograd route whose
    forward is K1) and K6 (the axis swap, forward and backward) against
    their plain versions at training shapes;
 7. the training path itself: ``make_fused_gan_train_step`` (generator
-   step, host PESQ labels from the native engine, self-correcting
+   step, host PESQ labels from the port's native engine, self-correcting
    discriminator step) on a full-width ``TSCNet(64, 201,
    fused_attention=True)`` and ``Discriminator(16)``, arch scp, MSE,
    SGD-Nesterov lr 0.01 (discriminator 0.02), batches of 8 x 1 s
@@ -35,8 +39,19 @@ each (timings beside the card's name and power limit):
    one with ``fused_relayout=True`` (K6 launched);
 8. training timings (CUDA events, median after warm-up): generator step,
    host labels, discriminator step, whole step, kernel path against plain
-   path, fp32 and bf16; K2 and K6 against their plain versions; peak
-   device memory of a step with and without rematerialization.
+   path, fp32 and bf16; the kernel rows of K2 and K6; peak device memory
+   of a step with and without rematerialization.
+
+Timing: a kernel's device time is CUDA events around N back-to-back calls
+(N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
+that the host's per-call cost leaves no gap between them, divided by N;
+its per-call time is CUDA events around one call, host included (median).
+A row says whether its working set fits the 50 MB L2 (then the repeated
+calls find their inputs there).  Bounds are the larger of the operations
+over the card's peak rate for their type and the bytes (each input read
+once, each output written once) over 3.35 TB/s.  ``library_ms`` is one
+PyTorch call computing the same function, timed here and used nowhere in
+the port.
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
@@ -49,6 +64,7 @@ that the plain path is full fp32.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -98,6 +114,107 @@ def time_pair(kernel_fn, plain_fn, warmup: int = 2, reps: int = 10):
             end.synchronize()
             times[fn].append(start.elapsed_time(end))
     return statistics.median(times[kernel_fn]), statistics.median(times[plain_fn])
+
+
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+L2_BYTES = 50e6
+
+
+def device_ms(fn, min_ms: float = 2.0, min_n: int = 20, max_n: int = 400) -> float:
+    """Device ms per call of ``fn``: CUDA events around ``n`` back-to-back
+    calls, divided by ``n``.  The calls are queued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts the host's enqueueing, so the
+    card runs them without waiting on the host; ``n >= min_n``, grown until
+    the calls take >= ``min_ms`` (at most ``max_n`` calls).  A ``fn`` that
+    waits on the card itself (an allocation that frees cached blocks)
+    outlasts any spin: after three longer spins its time is taken as it
+    comes, host gaps included."""
+    fn()
+    torch.cuda.synchronize()
+    n, cycles, spins = min_n, 20_000_000, 0
+    while True:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        for _ in range(n):
+            fn()
+        marks[2].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].synchronize()
+        spin_ms, total = marks[0].elapsed_time(marks[1]), marks[1].elapsed_time(marks[2])
+        if enqueue_ms > 0.9 * spin_ms and spins < 3:  # the card may have waited
+            cycles = int(cycles * 2 * enqueue_ms / max(spin_ms, 1e-3))
+            spins += 1
+            continue
+        if total >= min_ms or n >= max_n:
+            return total / n
+        n = min(max_n, math.ceil(n * 1.2 * min_ms / max(total, 1e-3)))
+
+
+def bound(flops: float, nbytes: float, dtype=torch.bfloat16) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def library(fn) -> float | None:
+    """Device ms of a PyTorch yardstick call, or None (printed) when PyTorch
+    refuses it here; the yardstick is not the port, so its refusal is no
+    failure."""
+    try:
+        return device_ms(fn)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+        print(f"    info library call refused: {str(exc).splitlines()[0][:200]}", flush=True)
+        torch.cuda.empty_cache()
+        return None
+
+
+def row(name: str, dev: float, call: float, plain: float, bnd: tuple, nbytes: float,
+        lib: float | None, card: str, extra: str = "") -> dict:
+    """Print one kernel row; returns its numbers for the kernels line."""
+    warm = ("L2-warm" if nbytes < L2_BYTES else "L2-cold") + f" ({nbytes / 1e6:.2f} MB moved)"
+    lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
+    print(f"    {name}: device {dev:.4f} ms, per call {call:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]}; {100 * bnd[0] / dev:.1f}% of bound), "
+          f"library {lib_s}; {warm}{extra} ({card})", flush=True)
+    return {"ms": dev, "device_ms": dev, "call_ms": call, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+            "l2_warm": nbytes < L2_BYTES}
+
+
+def attention_bound(b, n, dtype, h=4, d=16):
+    """K1: three n x n x d contractions per (sequence, head); q, k, v, out."""
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = 4 * b * n * h * d * elem
+    return bound(6.0 * b * h * n * n * d, nbytes, dtype), nbytes
+
+
+def sdpa_yardstick(q, k, v, table, max_pos=512):
+    """(SDPA alone, bias build + SDPA): ``scaled_dot_product_attention``
+    with the Shaw bias ``[B', h, n, n]`` as its mask, built by the plain
+    gather and einsum; q, k, v as [B', h, n, d] views."""
+    import torch.nn.functional as F
+
+    from speech_enhancement_tpu_torch.ops.fused_attention import relative_index
+
+    d = q.shape[-1]
+    idx = relative_index(q.shape[1], max_pos, q.device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def build_bias():
+        return torch.einsum("bhid,ijd->bhij", qt, table[idx]) * d ** -0.5
+
+    bias = build_bias()
+    alone = library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
+    del bias
+    torch.cuda.empty_cache()
+    chain = library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=build_bias()))
+    return alone, chain
 
 
 def attention_operands(b, n, dtype, gen, h=4, d=16, max_pos=512):
@@ -155,7 +272,7 @@ def read_grads(opt, module) -> dict:
 def training_phases(card: str, gen: torch.Generator) -> dict:
     """Phases 6-8: K2 and K6 against their plain versions, the training
     path through ``make_fused_gan_train_step``, and its timings.  Returns
-    the launch counts, errors and times of K2 and K6 (and K1's count)."""
+    the launch counts (K1's too), errors and kernel rows of K2 and K6."""
     from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
     from speech_enhancement_tpu_torch.ops import fused_relayout as fr
@@ -169,7 +286,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     from speech_enhancement_tpu_torch.train.gan import host_pesq_labels
 
     errs = {"K2": 0.0, "K6": 0.0}
-    ms = {}
+    rows = {}
 
     # 6. K2 and K6 against their plain versions, at training shapes
     print("[6 training kernels vs plain] K2 fp32: dq, dk, dv within rtol 1e-4 + atol 1e-5 "
@@ -239,7 +356,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                                               compute_dtype=None if dtype == torch.float32
                                               else dtype) for dtype in both}
     states = {dtype: new_state() for dtype in both}
-    fa.launches = fa.bwd_launches = fr.launches = 0
+    fa.launches = fa.mma_launches = fa.bwd_launches = fr.launches = 0
     t0 = time.perf_counter()
     history = {dtype: [] for dtype in both}
     for dtype in both:
@@ -250,7 +367,8 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         history[dtype].append(steps[dtype](states[dtype], clean, noisy, 3))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"K1": fa.launches, "K2": fa.bwd_launches}
+    launches = {"K1 tensor-core": fa.mma_launches, "K1 CUDA-core": fa.launches,
+                "K2": fa.bwd_launches}
     print(f"[7 training path] make_fused_gan_train_step, TSCNet(64, 201, fused_attention=True) "
           f"+ Discriminator(16), scp, batch 8 x 16000, 4 steps each fp32 and bf16 in "
           f"{train_s:.2f} s (first calls included); launches {launches}", flush=True)
@@ -264,8 +382,8 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         check(gen_losses[-1] < gen_losses[0],
               f"{dtype} generator loss on one repeated batch falls: "
               f"{', '.join(f'{x:.5f}' for x in gen_losses)}")
-        print(f"    info {dtype} last step: " + ", ".join(f"{k} {v:.5f}" for k, v in values[-1].items()),
-              flush=True)
+        print(f"    info {dtype} last step: "
+              + ", ".join(f"{k} {v:.5f}" for k, v in values[-1].items()), flush=True)
     del states
 
     # one fp32 step from the same weights, batch and seed: kernel path, and
@@ -350,23 +468,59 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         q, k, v, table = attention_operands(b, n, torch.bfloat16, gen)
         g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
         out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, 0.25, with_lse=True)
-        pair = time_pair(lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g),
-                         lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
-                         warmup=1, reps=6)
+        kernel = lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g)  # noqa: E731
+        call, plain = time_pair(kernel, lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
+                                warmup=1, reps=6)
+        # eight n x n x d contractions (s, the bias, dP, dV, dQ and its
+        # bias term, dK, dtable); q, k, v, out, g, lse in, dq, dk, dv out
+        nbytes = 8 * q.numel() * 2 + lse.numel() * 4 + table.numel() * 2
+        bnd = bound(16.0 * b * 4 * n * n * 16, nbytes)
+        lib = None
         if b == 808:
-            ms["K2"] = pair
-        print(f"    K2 B'={b} n={n} bf16: kernel {pair[0]:.3f} ms, plain backward "
-              f"{pair[1]:.3f} ms ({card})", flush=True)
+            # the yardstick's backward: autograd through the Shaw-bias build
+            # and scaled_dot_product_attention (K1's library call)
+            import torch.nn.functional as F
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+            qt, kt, vt = (t.transpose(1, 2) for t in leaves[:3])
+            bias = torch.einsum("bhid,ijd->bhij", qt,
+                                leaves[3][fa.relative_index(n, 512, q.device)]) * 0.25
+            y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2)
+            lib = library(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+            del leaves, qt, kt, vt, bias, y
+        r = row(f"K2 B'={b} n={n} bf16", device_ms(kernel), call, plain, bnd, nbytes, lib, card,
+                "; library: autograd backward of the bias build and SDPA" if b == 808 else "")
+        if b == 808:
+            rows["K2"] = r
         del q, k, v, table, g, out, lse
         torch.cuda.empty_cache()
-    for shape in ((8, 101, 161, 64), (32, 101, 321, 64)):
+    for shape, target in (((8, 101, 161, 64), "no slower than transpose().contiguous()"),
+                          ((32, 101, 321, 64), ">= 65% of the bound")):
         x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-        pair = time_pair(lambda: fr.swap_seq_axes(x), lambda: fr.swap_seq_axes_reference(x))
+        call, plain = time_pair(lambda: fr.swap_seq_axes(x), lambda: fr.swap_seq_axes_reference(x),
+                                reps=20)
+        host = {}
+        for name, fn in (("kernel", lambda: fr.swap_seq_axes(x)),
+                         ("torch", lambda: fr.swap_seq_axes_reference(x))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host[name] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        nbytes = 2 * x.numel() * 2
+        dev = device_ms(lambda: fr.swap_seq_axes(x))
+        lib = library(lambda: x.transpose(1, 2).contiguous())
+        r = row(f"K6 {list(shape)} bf16", dev, call, plain, bound(0.0, nbytes), nbytes, lib, card,
+                f"; host enqueue per call: wrapper {host['kernel']:.1f} us, "
+                f"transpose().contiguous() {host['torch']:.1f} us; aim: {target}")
+        r["host_us"] = host["kernel"]
         if shape[0] == 8:
-            ms["K6"] = pair
-        print(f"    K6 {list(shape)} bf16: kernel {pair[0]:.3f} ms, transpose().contiguous() "
-              f"{pair[1]:.3f} ms ({card})", flush=True)
-    del x
+            rows["K6"] = r
+            rows["K6"]["serving"] = None
+        else:
+            rows["K6"]["serving"] = r
+        del x
+    torch.cuda.empty_cache()
 
     clean, noisy = batches[0]
     for remat in (True, False):
@@ -383,14 +537,16 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
               f"{base / 2**30:.3f} GiB held before it) ({card})", flush=True)
         del state
         torch.cuda.empty_cache()
-    return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "ms": ms}
+    return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "rows": rows}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     from speech_enhancement_tpu_torch.enhance import Enhancer
+    from speech_enhancement_tpu_torch.metrics import pesq
     from speech_enhancement_tpu_torch.models import TSCNet
     from speech_enhancement_tpu_torch.ops import _native
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
@@ -410,42 +566,73 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
           f"matmuls and cuDNN", flush=True)
 
-    # 2. build: one nvcc per source, all at once
+    # 2. build: one compiler per source, all at once
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        for build in [pool.submit(b) for b in (fs.build, fa.build, fa.build_bwd, fr.build)]:
+    builds = (fs.build, fa.build, fa.build_mma, fa.build_bwd, fr.build, pesq.build)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        for build in [pool.submit(b) for b in builds]:
             build.result()
-    built = ", ".join(f"{name}.cu {sec:.1f} s" for name, sec in _native.build_seconds.items())
-    print(f"[2 build] {built}; wall {time.perf_counter() - t0:.1f} s (nvcc sm_90a, "
+    built = ", ".join(f"{name} {sec:.1f} s" for name, sec in _native.build_seconds.items())
+    print(f"[2 build] {built}; wall {time.perf_counter() - t0:.1f} s (nvcc sm_90a and g++, "
           f"in parallel)", flush=True)
+    report, head_dim = {}, None  # ptxas -v of each d instance
+    for line in _native.build_logs.get("shaw_attention_mma", "").splitlines():
+        if "Compiling entry function" in line:
+            head_dim = line.split("shaw_attention_mma_kernelILi")[1].split("E")[0]
+        elif head_dim and ("registers" in line or "spill" in line):
+            report.setdefault(head_dim, []).append(line.strip())
+    for d, lines in sorted(report.items()):
+        print(f"    info ptxas -v, K1 tensor-core instance d={d}: {'; '.join(lines)}", flush=True)
+    check(sorted(report) == ["16", "32"]
+          and all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                  for lines in report.values() for line in lines if "spill" in line),
+          "K1 tensor-core instance: ptxas reports no spills at d=16 and d=32")
+    for d in (16, 32):
+        warps = 4 * fa.mma_occupancy(d)
+        check(warps >= 8, f"K1 tensor-core instance d={d}: {warps} resident warps per SM "
+                          f"(at least 8)")
 
     # 3. kernels against their plain versions, main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+    errs = {"K1": 0.0, "K1mma": 0.0, "K4": 0.0, "K5": 0.0}
     print("[3 kernels vs plain] tolerance |kernel - plain| <= atol + rtol |plain|", flush=True)
     # K1: fp32 differs in summation order only (rtol 1e-4, atol 1e-5, as
     # tests/test_pallas_attention.py); bf16 may flip a rounding of P or of
     # the output, one bf16 step of order-1 values (rtol 2e-2, atol 2e-2)
     tols = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
     # main-path shapes (2 s and 8 s at batch 32 have B' = 3232; these are
-    # slices of them), then short and clipped edge cases (max_pos_emb 8)
-    # and the other head dims the kernel is built for
+    # slices of them), then short, full-tile and clipped edge cases
+    # (max_pos_emb 8) and the other head dims; bf16 at d 16 and 32 takes
+    # the tensor-core instance, the rest the CUDA-core one
     both = (torch.float32, torch.bfloat16)
     for b, n, max_pos, d, dtypes in ((404, 321, 512, 16, both), (8, 1281, 512, 16, both),
                                      (5, 7, 512, 16, both), (3, 100, 8, 16, both),
-                                     (6, 70, 512, 4, both), (6, 70, 512, 8, both),
-                                     (6, 70, 512, 32, both)):
+                                     (2, 64, 512, 16, both), (8, 1281, 8, 16, both),
+                                     (6, 321, 512, 32, both), (4, 1281, 512, 32, both),
+                                     (5, 7, 512, 32, both), (3, 100, 8, 32, both),
+                                     (6, 70, 512, 4, both), (6, 70, 512, 8, both)):
         for dtype in dtypes:
             q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
-            got = fa.fused_shaw_attention(q, k, v, table, max_pos)
+            instance = fa.kernel_instance(dtype, d)
+            got, lse = fa.fused_shaw_attention_fwd(q, k, v, table, max_pos, d ** -0.5,
+                                                   with_lse=True)
             want = fa.shaw_attention_reference(q, k, v, table, max_pos)
+            # the row log-sum-exp K2 reads: fp32 sums of the same logits in
+            # another order (atol 1e-4 on values of order 10)
+            rel = table[fa.relative_index(n, max_pos, q.device)].float()
+            logits = (torch.einsum("bihd,bjhd->bhij", q.float(), k.float())
+                      + torch.einsum("bihd,ijd->bhij", q.float(), rel)) * d ** -0.5
+            lse_err = float((lse - torch.logsumexp(logits, -1)).abs().max())
             torch.cuda.synchronize()
             err, ok = within(got, want, *tols[dtype])
-            errs["K1"] = max(errs["K1"], err)
-            check(ok and got.dtype == dtype and got.shape == want.shape,
-                  f"K1 shaw attention B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: "
-                  f"max abs err {err:.3e} (rtol {tols[dtype][0]}, atol {tols[dtype][1]})")
-            del q, k, v, table, got, want
+            key = "K1mma" if instance == "tensor_core" else "K1"
+            errs[key] = max(errs[key], err)
+            check(ok and lse_err < 1e-4 and got.dtype == dtype and got.shape == want.shape,
+                  f"K1 ({instance}) B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: "
+                  f"max abs err {err:.3e} (rtol {tols[dtype][0]}, atol {tols[dtype][1]}); "
+                  f"lse max abs err {lse_err:.2e} (atol 1e-4)")
+            del q, k, v, table, got, lse, want, rel, logits
+        torch.cuda.empty_cache()
     x = torch.randn(32, 32000, device="cuda", generator=gen)  # RMS 1, as normalized audio
     spec = fs.fused_stft(x)
     spec_ref = fs.stft_reference(x)
@@ -483,13 +670,14 @@ def main() -> int:
     plain_bf16 = Enhancer(plain_model, compute_dtype=torch.bfloat16, device="cuda")
     plain_fp32 = Enhancer(plain_model, device="cuda")
 
-    fa.launches = fs.stft_launches = fs.istft_launches = 0
+    fa.launches = fa.mma_launches = fs.stft_launches = fs.istft_launches = 0
     t0 = time.perf_counter()
     out = {"kernel bf16": kernel_bf16.enhance(utts, batch_size=8),
            "kernel fp32": kernel_fp32.enhance(utts, batch_size=8)}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"K1": fa.launches, "K4": fs.stft_launches, "K5": fs.istft_launches}
+    launches = {"K1 tensor-core": fa.mma_launches, "K1 CUDA-core": fa.launches,
+                "K4": fs.stft_launches, "K5": fs.istft_launches}
     print(f"[4 main path] 12 utterances {min(lengths)}-{max(lengths)} samples, batch 8, "
           f"bf16 + fp32 kernel path in {main_s:.2f} s (first calls included); "
           f"launches {launches}", flush=True)
@@ -505,9 +693,9 @@ def main() -> int:
     # fp32: the kernels and the plain ops differ in summation order only;
     # a random-init 8-conformer stack amplifies that, so 1e-3 (CPU parity
     # at width 16 is 1e-4)
-    for name, bound in (("kernel fp32", 1e-3), ("kernel bf16", 0.35), ("plain bf16", 0.35)):
+    for name, limit in (("kernel fp32", 1e-3), ("kernel bf16", 0.35), ("plain bf16", 0.35)):
         err = rel_rms(np.concatenate(out[name]), ref)
-        check(err < bound, f"{name} vs plain fp32: relative RMS {err:.3e} (bound {bound}; "
+        check(err < limit, f"{name} vs plain fp32: relative RMS {err:.3e} (bound {limit}; "
               f"bf16 bound as tests/test_enhance.py)")
     err = rel_rms(np.concatenate(out["kernel bf16"]), np.concatenate(out["plain bf16"]))
     print(f"    info kernel bf16 vs plain bf16: relative RMS {err:.3e} (the plain "
@@ -515,7 +703,8 @@ def main() -> int:
     del out
 
     # 5. timings
-    print(f"[5 timings] CUDA events, median of 10 after warm-up; card {card}", flush=True)
+    print(f"[5 timings] per call: CUDA events around one call, median of 10 after "
+          f"warm-up; device: see the header; card {card}", flush=True)
     batch = (0.1 * rng.standard_normal((32, 32000))).astype(np.float32)
     kernel_ms, plain_ms = time_pair(lambda: kernel_bf16.enhance_batch(batch),
                                     lambda: plain_bf16.enhance_batch(batch), reps=10)
@@ -525,66 +714,127 @@ def main() -> int:
                                         lambda: plain_fp32.enhance_batch(batch), reps=6)
     print(f"    enhance_batch [32, 32000] fp32: kernel path {kernel_ms32:.3f} ms, plain path "
           f"{plain_ms32:.3f} ms ({card})", flush=True)
-    del kernel_bf16, kernel_fp32, plain_bf16, plain_fp32
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel_bf16.enhance_batch(batch)
+    kernel_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_ms = sum(us for _, us in kernel_us) / 1e3
+    k1_ms = sum(us for key, us in kernel_us if "shaw_attention" in key) / 1e3
+    print(f"    torch.profiler, one enhance_batch [32, 32000] bf16, kernel path: "
+          f"{total_ms:.3f} ms of device kernel time, K1 {k1_ms:.3f} ms "
+          f"({100 * k1_ms / total_ms:.1f}%) ({card})", flush=True)
+    busiest = sorted(kernel_us, key=lambda e: -e[1])[:6]
+    print("    info busiest kernels: " + "; ".join(f"{us / 1e3:.3f} ms {key[:60]}"
+                                               for key, us in busiest), flush=True)
+    del kernel_bf16, kernel_fp32, plain_bf16, plain_fp32, prof
     torch.cuda.empty_cache()
 
-    ms = {}
+    rows = {}
     q, k, v, table = attention_operands(3232, 321, torch.bfloat16, gen)
-    ms["K1"] = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                         lambda: fa.shaw_attention_reference(q, k, v, table))
-    print(f"    K1 B'=3232 n=321 bf16 (2 s at batch 32): kernel {ms['K1'][0]:.3f} ms, plain "
-          f"{ms['K1'][1]:.3f} ms ({card})", flush=True)
+    call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
+                            lambda: fa.shaw_attention_reference(q, k, v, table))
+    alone, chain = sdpa_yardstick(q, k, v, table)
+    bnd, nbytes = attention_bound(3232, 321, torch.bfloat16)
+    rows["K1mma"] = row("K1 tensor-core B'=3232 n=321 bf16 (2 s at batch 32)",
+                        device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call,
+                        plain, bnd, nbytes, alone, card,
+                        f"; SDPA with the bias built beforehand "
+                        f"{'n/a' if chain is None else f'{chain:.4f} ms'}")
+    rows["K1mma"]["library_chain_ms"] = chain
     del q, k, v, table
     torch.cuda.empty_cache()
     q, k, v, table = attention_operands(3232, 1281, torch.bfloat16, gen)
-    long_ms = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                        lambda: chunked(fa.shaw_attention_reference, 202, q, k, v, table),
-                        warmup=1, reps=2)
-    print(f"    K1 B'=3232 n=1281 bf16 (8 s at batch 32): kernel {long_ms[0]:.3f} ms, plain "
-          f"(16 chunks of 202) {long_ms[1]:.3f} ms ({card})", flush=True)
+    call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
+                            lambda: chunked(fa.shaw_attention_reference, 202, q, k, v, table),
+                            warmup=1, reps=2)
+    bnd, nbytes = attention_bound(3232, 1281, torch.bfloat16)
+    long = row("K1 tensor-core B'=3232 n=1281 bf16 (8 s at batch 32)",
+               device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call,
+               plain, bnd, nbytes, None, card, "; plain in 16 chunks of 202, SDPA's "
+               "26 GB bias does not fit")
+    rows["K1mma"]["n1281"] = long
     del q, k, v, table
     torch.cuda.empty_cache()
-    x = torch.randn(32, 32000, device="cuda", generator=gen)
-    ms["K4"] = time_pair(lambda: fs.fused_stft(x), lambda: fs.stft_reference(x))
-    spec = fs.stft_reference(x)
-    ms["K5"] = time_pair(lambda: fs.fused_istft(spec, length=32000),
-                         lambda: fs.istft_reference(spec, length=32000))
-    print(f"    K4 stft [32, 32000]: kernel {ms['K4'][0]:.3f} ms, plain {ms['K4'][1]:.3f} ms; "
-          f"K5 istft [32, 321, 201]: kernel {ms['K5'][0]:.3f} ms, plain "
-          f"{ms['K5'][1]:.3f} ms ({card})", flush=True)
+    q, k, v, table = attention_operands(10272, 101, torch.bfloat16, gen)
+    eager = device_ms(lambda: torch.softmax(
+        (torch.einsum("bihd,bjhd->bhij", q, k) + torch.einsum(
+            "bihd,ijd->bhij", q, table[fa.relative_index(101, 512, q.device)])) * 0.25,
+        dim=-1) @ v.transpose(1, 2))
+    print(f"    info K1 tensor-core at the freq conformer's B'=10272 n=101 bf16 (not routed "
+          f"through K1): device {device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)):.4f}"
+          f" ms; the eager bf16 attention there {eager:.4f} ms ({card})", flush=True)
+    del q, k, v, table
+    torch.cuda.empty_cache()
+    q, k, v, table = attention_operands(3232, 321, torch.float32, gen)
+    call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
+                            lambda: fa.shaw_attention_reference(q, k, v, table))
+    bnd, nbytes = attention_bound(3232, 321, torch.float32)
+    rows["K1"] = row("K1 CUDA-core B'=3232 n=321 fp32",
+                     device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call, plain,
+                     bnd, nbytes, sdpa_yardstick(q, k, v, table)[0], card)
+    del q, k, v, table
+    torch.cuda.empty_cache()
 
+    x = torch.randn(32, 32000, device="cuda", generator=gen)
+    spec = fs.stft_reference(x)
+    window = torch.hamming_window(400, device="cuda")
+    # K4, K5: what an FFT-based STFT needs, a real FFT of 400 samples per
+    # frame (2.5 N log2 N flops) plus the window and a few flops per bin for
+    # the compression; the bytes (20.6 MB) bound it, not these 0.12 GFLOP
+    fft_flops = 32 * 321 * (2.5 * 400 * math.log2(400) + 400 + 8 * 201)
+    stft_bytes = x.numel() * 4 + spec.numel() * 8
+    call, plain = time_pair(lambda: fs.fused_stft(x), lambda: fs.stft_reference(x))
+    rows["K4"] = row("K4 stft+compress [32, 32000] fp32", device_ms(lambda: fs.fused_stft(x)),
+                     call, plain, bound(fft_flops, stft_bytes, torch.float32), stft_bytes,
+                     library(lambda: fs._gated_rescale(torch.stft(
+                         x, 400, 100, window=window, return_complex=True).transpose(1, 2),
+                         -0.35)), card, "; library: torch.stft, then the compression")
+    call, plain = time_pair(lambda: fs.fused_istft(spec, length=32000),
+                            lambda: fs.istft_reference(spec, length=32000))
+    rows["K5"] = row("K5 uncompress+istft [32, 321, 201] fp32",
+                     device_ms(lambda: fs.fused_istft(spec, length=32000)), call, plain,
+                     bound(fft_flops, stft_bytes, torch.float32), stft_bytes,
+                     library(lambda: torch.istft(
+                         fs._gated_rescale(spec, (1.0 / 0.3 - 1.0) / 2.0).transpose(1, 2),
+                         400, 100, window=window, length=32000)), card,
+                     "; library: the uncompression, then torch.istft")
     del x, spec
     torch.cuda.empty_cache()
 
     # 6-8. the training path
     train = training_phases(card, gen)
+    print(f"[done] {time.perf_counter() - started:.1f} s, build included", flush=True)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     pkg = "speech_enhancement_tpu_torch"
+    tl = train["launches"]
     kernels = [
-        {"name": "shaw_attention_fwd", "route": "cuda", "source": f"{pkg}/csrc/shaw_attention.cu",
+        {"name": "shaw_attention_fwd_tensor_core", "route": "cuda",
+         "source": f"{pkg}/csrc/shaw_attention_mma.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         "launches": launches["K1"] + train["launches"]["K1"], "max_abs_err": errs["K1"],
-         "ms": ms["K1"][0], "plain_ms": ms["K1"][1]},
+         "launches": launches["K1 tensor-core"] + tl["K1 tensor-core"],
+         "max_abs_err": errs["K1mma"], **rows["K1mma"]},
+        {"name": "shaw_attention_fwd_cuda_core", "route": "cuda",
+         "source": f"{pkg}/csrc/shaw_attention.cu",
+         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
+         "launches": launches["K1 CUDA-core"] + tl["K1 CUDA-core"],
+         "max_abs_err": errs["K1"], **rows["K1"]},
         {"name": "shaw_attention_bwd", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         "launches": train["launches"]["K2"], "max_abs_err": train["errs"]["K2"],
-         "ms": train["ms"]["K2"][0], "plain_ms": train["ms"]["K2"][1]},
+         "launches": tl["K2"], "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
-         "launches": launches["K4"], "max_abs_err": errs["K4"],
-         "ms": ms["K4"][0], "plain_ms": ms["K4"][1]},
+         "launches": launches["K4"], "max_abs_err": errs["K4"], **rows["K4"]},
         {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
-         "launches": launches["K5"], "max_abs_err": errs["K5"],
-         "ms": ms["K5"][0], "plain_ms": ms["K5"][1]},
+         "launches": launches["K5"], "max_abs_err": errs["K5"], **rows["K5"]},
         {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
-         "launches": train["launches"]["K6"], "max_abs_err": train["errs"]["K6"],
-         "ms": train["ms"]["K6"][0], "plain_ms": train["ms"]["K6"][1]},
+         "launches": tl["K6"], "max_abs_err": train["errs"]["K6"], **train["rows"]["K6"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

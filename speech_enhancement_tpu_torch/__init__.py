@@ -8,8 +8,9 @@ spectrograms are ``[B, T, F]``, attention operands ``[B, n, heads, d]``.
 
 Layers (bottom-up):
   csrc/      CUDA C++ kernels (Shaw attention forward and backward, STFT,
-             iSTFT, axis swap), built at first use
+             iSTFT, axis swap) and the C++ PESQ engine, built at first use
   ops/       STFT/iSTFT DSP, kernel wrappers with their plain PyTorch versions
+  metrics/   PESQ (the native engine's ctypes binding)
   models/    TSCNet (CMGAN generator) and the metric discriminator as NCHW
              ``nn.Module``s
   train/     criteria, optimizers, GAN train state and steps (SCP-GAN/CMGAN)
@@ -17,7 +18,9 @@ Layers (bottom-up):
   enhance.py batched, length-bucketed enhancement serving
 
 Importing the package touches no CUDA: kernels are compiled and loaded
-by the first wrapper call that receives a CUDA tensor.
+by the first wrapper call that receives a CUDA tensor.  Entry points run
+on ``cuda`` unless given ``device="cpu"``.  Nothing of the JAX package
+is imported.
 """
 
 __version__ = "0.1.0"

@@ -13,13 +13,17 @@
 // csrc/shaw_attention_bwd.cu) rebuilds P = exp(s - lse) without a second
 // softmax pass; serving passes none and writes nothing.
 //
+// This is the CUDA-core instance: fp32 at head dims 4, 8, 16 and 32, and
+// bf16 at 4 and 8.  bf16 at 16 and 32 is the tensor-core instance
+// (csrc/shaw_attention_mma.cu), and the entry point here refuses it.
+//
 // What bounds it on an H100: at the serving shape (B = 3232 sequences,
 // n = 321, h = 4, d = 16) the three n x n x d contractions are ~128 GFLOP,
 // and the fp32 logits the plain version materializes are 5.3 GB (85 GB at
 // the 8 s bucket, n = 1281, which does not fit).  This kernel never writes
 // logits: it is bound by the instruction throughput and shared-memory
-// bandwidth of its fp32 multiply-adds (no tensor cores yet; mma/wgmma is
-// later work).
+// bandwidth of its fp32 multiply-adds (fp32 stays off the tensor cores,
+// since TF32 would break its rtol 1e-4 bound).
 //
 // Design:
 // * one block of BM threads per (sequence, head, BM queries); each thread
@@ -39,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "cvt.cuh"
 
@@ -186,15 +192,20 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
     case 8:
       return launch<T, 8>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
                           k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
-    case 16:
-      return launch<T, 16>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
-                           k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
+    case 16:  // bf16 at d 16 and 32: the tensor-core instance's
+      if constexpr (std::is_same_v<T, float>)
+        return launch<T, 16>(q, k, v, table, out, lse, batch, n, h, q_sb,
+                             q_sn, k_sb, k_sn, v_sb, v_sn, max_pos, scale,
+                             stream);
+      break;
     case 32:
-      return launch<T, 32>(q, k, v, table, out, lse, batch, n, h, q_sb, q_sn,
-                           k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if constexpr (std::is_same_v<T, float>)
+        return launch<T, 32>(q, k, v, table, out, lse, batch, n, h, q_sb,
+                             q_sn, k_sb, k_sn, v_sb, v_sn, max_pos, scale,
+                             stream);
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -203,7 +214,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // the batch and sequence strides (in elements) are given.  table:
 // [2 * max_pos + 1, d] contiguous, in the dtype of q.  out: contiguous
 // [batch, n, h, d] in the dtype of q.  lse: null, or [batch, h, n] fp32.
-// is_bf16 selects bfloat16 over fp32.
+// is_bf16 selects bfloat16 over fp32; bf16 at d 16 or 32 returns
+// cudaErrorInvalidValue (shaw_attention_mma.cu takes it).
 extern "C" int se_shaw_attention(const void* q, const void* k, const void* v,
                                  const void* table, void* out, void* lse,
                                  int is_bf16, int batch, int n, int h, int d,

@@ -45,8 +45,8 @@ class Enhancer:
     ``compute_dtype=torch.bfloat16`` runs the model on a bf16 copy of its
     floating parameters and buffers (the model passed in is left as it
     is); the featurization, the magnitude and phase, and the output stay
-    fp32.  ``device`` is explicit and raises when CUDA is asked for and
-    absent.
+    fp32.  ``device`` is ``cuda`` when None (``'cpu'`` runs on the CPU)
+    and raises when CUDA is asked for and absent.
     """
 
     def __init__(self, model: torch.nn.Module, n_fft: int = 400, hop: int = 100,
@@ -139,7 +139,8 @@ class Enhancer:
 def predict_one(model: torch.nn.Module, noisy_signal: np.ndarray, n_fft: int = 400,
                 hop: int = 100, device=None) -> np.ndarray:
     """Single-utterance predict with the reference semantics: wrap-pad only
-    to the next hop multiple, enhance, cut back to the input length."""
+    to the next hop multiple, enhance, cut back to the input length.
+    ``device`` as for :class:`Enhancer`."""
     length = len(noisy_signal)
     padded = ((length + hop - 1) // hop) * hop
     x = wrap_pad(np.asarray(noisy_signal, np.float32), padded)[None]

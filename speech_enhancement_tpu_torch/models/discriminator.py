@@ -33,7 +33,8 @@ from speech_enhancement_tpu_torch.utils.device import resolve_device
 class Discriminator(nn.Module):
     """``forward(x, y)`` with ``x, y`` magnitude spectrograms ``[B, T, F]``
     returns ``[B, 1]``.  Weights are drawn from ``generator`` (seed 0 when
-    None) on the CPU and then moved to ``device``."""
+    None) on the CPU and then moved to ``device`` (``cuda`` when None;
+    pass ``'cpu'`` for the CPU)."""
 
     def __init__(self, ndf: int = 16, dropout: float = 0.3, device=None,
                  generator: torch.Generator | None = None):

@@ -192,7 +192,8 @@ class TSCNet(nn.Module):
     returns ``(real, imag)``, each ``[B, T, F]`` fp32: the masked magnitude
     recombined with the noisy phase, plus the complex decoder's residual.
     Weights are drawn from ``generator`` (seed 0 when None) on the CPU and
-    then moved to ``device``.  ``remat=False`` keeps the TSCB activations
+    then moved to ``device`` (``cuda`` when None; pass ``'cpu'`` for the
+    CPU).  ``remat=False`` keeps the TSCB activations
     in training instead of recomputing them (more memory, same result).
     """
 

@@ -4,13 +4,16 @@ backward (K2, with K3 folded in).
 Replaces ``speech_enhancement_tpu/ops/pallas_attention.py``: the forward
 ``_attn_kernel`` (via ``_kernel_call``) and the backward
 ``_attn_bwd_kernel`` / ``_attn_bwd_drel_kernel`` (via ``_bwd_kernel_call``).
-The kernels live in ``csrc/shaw_attention.cu`` and
-``csrc/shaw_attention_bwd.cu``, whose headers say what bounds them on an
-H100 and how they are laid out.  ``ShawAttention(fused=True)`` (the time
-conformer of ``TSCNet(fused_attention=True)``) calls
-:func:`fused_shaw_attention`, which is differentiable in q, k, v and the
-table: under autograd its forward is K1 (which then also writes each row's
-log-sum-exp) and its backward is K2.
+K1 has two instances: bf16 at head dims 16 and 32 runs on tensor cores
+(``csrc/shaw_attention_mma.cu``), fp32 and bf16 at head dims 4 and 8 on
+CUDA cores (``csrc/shaw_attention.cu``); :func:`kernel_instance` picks one
+from (dtype, head dim).  K2 is ``csrc/shaw_attention_bwd.cu``.  Each
+source's header says what bounds it on an H100 and how it is laid out.
+``ShawAttention(fused=True)`` (the time conformer of
+``TSCNet(fused_attention=True)``) calls :func:`fused_shaw_attention`,
+which is differentiable in q, k, v and the table: under autograd its
+forward is K1 (which then also writes each row's log-sum-exp) and its
+backward is K2.
 
 Every wrapper launches its kernel for CUDA tensors and takes the plain
 PyTorch version (:func:`shaw_attention_reference`,
@@ -28,19 +31,31 @@ from speech_enhancement_tpu_torch.ops import _native
 __all__ = [
     "build",
     "build_bwd",
+    "build_mma",
     "fused_shaw_attention",
     "fused_shaw_attention_bwd",
     "fused_shaw_attention_fwd",
+    "kernel_instance",
+    "mma_occupancy",
     "shaw_attention_bwd_reference",
     "shaw_attention_reference",
+    "shaw_bias_skewed",
 ]
 
-# kernel launches of each wrapper since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset them): K1's CUDA-core
+# instance, K1's tensor-core instance, K2
 launches = 0
+mma_launches = 0
 bwd_launches = 0
 
-_HEAD_DIMS = (4, 8, 16, 32)  # csrc/shaw_attention.cu template instances
+_HEAD_DIMS = (4, 8, 16, 32)  # the head dims K1 and K2 are built for
 _DTYPES = (torch.float32, torch.bfloat16)
+# (dtype, head dim) of the tensor-core instance, csrc/shaw_attention_mma.cu
+_TENSOR_CORE = {(torch.bfloat16, 16), (torch.bfloat16, 32)}
+# its tiling (kWarps * 16 query rows per block, kBN keys per tile, kWarpBand
+# band rows per warp, R' pitch kRP), mirrored by shaw_bias_skewed
+_MMA_BM, _MMA_BN, _MMA_WARP_ROWS, _MMA_WARP_BAND, _MMA_RP = 64, 64, 16, 80, 20
+_LOG2E = 1.4426950408889634
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
@@ -48,6 +63,13 @@ _SIGNATURES = {
     # q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, max_pos, scale, stream
     "se_shaw_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _I, _F, _P],
+}
+_SIGNATURES_MMA = {
+    # q, k, v, table, out, lse, batch, n, h, d,
+    # q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, max_pos, scale * log2(e), stream
+    "se_shaw_attention_mma": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
+    # d, *blocks
+    "se_shaw_attention_mma_occupancy": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 _SIGNATURES_BWD = {
     # q, k, v, table, out, g, lse, delta, dq, dk, dv, dtable, is_bf16, batch,
@@ -67,6 +89,32 @@ def build() -> ctypes.CDLL:
     return _native.load("shaw_attention", _SIGNATURES)
 
 
+def build_mma() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/shaw_attention_mma.cu`` (K1,
+    the bf16 tensor-core instance)."""
+    return _native.load("shaw_attention_mma", _SIGNATURES_MMA)
+
+
+def mma_occupancy(d: int) -> int:
+    """Resident blocks (of 4 warps) per SM of the tensor-core instance at
+    head dim ``d``, as the CUDA runtime computes it for the built kernel."""
+    blocks = ctypes.c_int(0)
+    _native.check(build_mma().se_shaw_attention_mma_occupancy(d, ctypes.byref(blocks)),
+                  "se_shaw_attention_mma_occupancy")
+    return blocks.value
+
+
+def kernel_instance(dtype: torch.dtype, d: int) -> str:
+    """Which K1 instance takes operands of ``dtype`` at head dim ``d``:
+    ``"tensor_core"`` (bf16, d 16 or 32: mma.sync, fp32 accumulate) or
+    ``"cuda_core"`` (fp32, whose rtol 1e-4 bound TF32 would break, and bf16
+    at d 4 or 8, below one mma k-step).  Dispatch, not a fallback: a
+    failed build or launch of the chosen instance raises."""
+    if dtype not in _DTYPES or d not in _HEAD_DIMS:
+        raise ValueError(f"no K1 instance for {dtype} at head dim {d}")
+    return "tensor_core" if (dtype, d) in _TENSOR_CORE else "cuda_core"
+
+
 def build_bwd() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/shaw_attention_bwd.cu`` (K2)."""
     return _native.load("shaw_attention_bwd", _SIGNATURES_BWD)
@@ -76,6 +124,36 @@ def relative_index(n: int, max_pos_emb: int, device=None) -> torch.Tensor:
     """``[n, n]`` table rows ``clip(i - j, +-max_pos_emb) + max_pos_emb``."""
     pos = torch.arange(n, device=device)
     return (pos[:, None] - pos[None, :]).clamp(-max_pos_emb, max_pos_emb) + max_pos_emb
+
+
+def shaw_bias_skewed(q: torch.Tensor, rel_table: torch.Tensor,
+                     max_pos_emb: int = 512) -> torch.Tensor:
+    """The unscaled Shaw bias ``[B, h, n, n]`` (fp32), built the way the
+    tensor-core instance of K1 builds it: for each warp's 16 query rows
+    and each key tile of 64, the 80 clipped table rows of offsets
+    ``i_w - j_0 - 63 + r`` form a band, ``R'[r][i] = E_band[r] . q_i`` is
+    written to a flat buffer at row pitch 20, and ``bias[i][j]`` is read at
+    ``63 * 20 + i * 21 - j * 20``: the skew as an address pattern.  Equals
+    ``q . rel_table[relative_index]`` up to summation order."""
+    b, n, h, d = q.shape
+    rows, tile, band, pitch = _MMA_WARP_ROWS, _MMA_BN, _MMA_WARP_BAND, _MMA_RP
+    nw, nj = -(-n // rows), -(-n // tile)
+    qp = torch.zeros((b, nw * rows, h, d), dtype=torch.float32, device=q.device)
+    qp[:, :n] = q.float()
+    qp = qp.view(b, nw, rows, h, d)
+    offsets = (rows * torch.arange(nw, device=q.device)[:, None, None]
+               - tile * torch.arange(nj, device=q.device)[None, :, None]
+               - (tile - 1) + torch.arange(band, device=q.device))
+    e_band = rel_table.float()[offsets.clamp(-max_pos_emb, max_pos_emb) + max_pos_emb]
+    r_t = torch.einsum("bwihd,wjrd->bhwjri", qp, e_band)  # R'[r][i]
+    flat = torch.zeros((b, h, nw, nj, band, pitch), dtype=torch.float32, device=q.device)
+    flat[..., :rows] = r_t
+    il = torch.arange(rows, device=q.device)[:, None]
+    jl = torch.arange(tile, device=q.device)[None, :]
+    address = (tile - 1) * pitch + il * (pitch + 1) - jl * pitch  # [16, 64]
+    tiles = flat.view(b, h, nw, nj, band * pitch)[..., address]  # [b, h, nw, nj, 16, 64]
+    bias = tiles.permute(0, 1, 2, 4, 3, 5).reshape(b, h, nw * rows, nj * tile)
+    return bias[:, :, :n, :n]
 
 
 def shaw_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,12 +198,26 @@ def _check(q, k, v, rel_table, max_pos_emb):
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
+def _check_alignment(q, k, v, table):
+    """The tensor-core instance copies 16-byte chunks of q, k, v and table
+    rows: every base pointer 16-byte aligned, batch and sequence strides
+    multiples of 8 elements.  Raises before any launch otherwise."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("rel_table", table)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned (data_ptr % 16 = "
+                             f"{t.data_ptr() % 16}), which the bf16 tensor-core "
+                             f"kernel needs")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"{name}'s batch and sequence strides {t.stride()[:2]} "
+                             f"must be multiples of 8 elements (16 bytes)")
+    b, n, h, _ = q.shape
+    if b * h * -(-n // _MMA_BM) >= 2 ** 31:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,8 +226,8 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 on CUDA tensors (the plain version on CPU tensors): ``(out,
     lse)``, with ``lse`` the ``[B, h, n]`` fp32 row log-sum-exp that K2
     takes when ``with_lse`` and the kernel ran, else None.  ``table`` is in
-    q's dtype."""
-    global launches
+    q's dtype.  The instance is :func:`kernel_instance`'s."""
+    global launches, mma_launches
     if q.device.type == "cpu":
         return shaw_attention_reference(q, k, v, table, max_pos_emb, scale), None
     if q.device.type != "cuda":
@@ -143,19 +235,29 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, table, max_pos_emb)
     b, n, h, d = q.shape
     table = table.contiguous()
+    tensor_core = kernel_instance(q.dtype, d) == "tensor_core"
+    if tensor_core:
+        _check_alignment(q, k, v, table)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if b == 0 or n == 0:
         return out, lse
-    lib = build()
-    status = lib.se_shaw_attention(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(table), _ptr(out),
-        _ptr(lse) if with_lse else None, int(q.dtype == torch.bfloat16),
-        b, n, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), max_pos_emb, float(scale), _stream(q))
-    _native.check(status, "se_shaw_attention")
-    launches += 1
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None)
+    if tensor_core:
+        status = build_mma().se_shaw_attention_mma(
+            *pointers, b, n, h, d, *strides, max_pos_emb, float(scale) * _LOG2E,
+            _native.current_stream(q.device))
+        _native.check(status, "se_shaw_attention_mma")
+        mma_launches += 1
+    else:
+        status = build().se_shaw_attention(
+            *pointers, int(q.dtype == torch.bfloat16), b, n, h, d, *strides, max_pos_emb,
+            float(scale), _native.current_stream(q.device))
+        _native.check(status, "se_shaw_attention")
+        launches += 1
     return out, lse
 
 
@@ -243,7 +345,7 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dtable),
         int(q.dtype == torch.bfloat16), b, n, h, d, q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), max_pos_emb,
-        float(scale), groups, band_rows, _stream(q))
+        float(scale), groups, band_rows, _native.current_stream(q.device))
     _native.check(status, "se_shaw_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv, dtable.to(table.dtype)

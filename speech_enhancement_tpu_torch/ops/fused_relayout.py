@@ -32,9 +32,15 @@ _SIGNATURES = {
 }
 
 
+_swap_fn = None  # se_swap_axes, resolved once at the first launch
+
+
 def build() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/relayout.cu``."""
-    return _native.load("relayout", _SIGNATURES)
+    global _swap_fn
+    lib = _native.load("relayout", _SIGNATURES)
+    _swap_fn = lib.se_swap_axes
+    return lib
 
 
 def swap_seq_axes_reference(x: torch.Tensor) -> torch.Tensor:
@@ -42,27 +48,36 @@ def swap_seq_axes_reference(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
-def _swap(x: torch.Tensor) -> torch.Tensor:
-    global launches
-    if x.device.type == "cpu":
-        return swap_seq_axes_reference(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"expected a CPU or CUDA tensor, got {x.device}")
+def _check(x: torch.Tensor) -> None:
+    """Refuse what the kernel cannot take, before any launch."""
     if x.ndim != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"expected a 4-D tensor of {_DTYPES}, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.numel() >= 2 ** 31:
-        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's 32-bit indexing")
+    if x.numel() >= 2 ** 31 or x.shape[0] > 65535:
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's 32-bit "
+                         f"indexing or its grid (batch <= 65535)")
+
+
+def _swap(x: torch.Tensor) -> torch.Tensor:
+    global launches
+    device = x.device
+    if device.type == "cpu":
+        return swap_seq_axes_reference(x)
+    if device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {device}")
+    _check(x)
     x = x.contiguous()
     b, a1, a2, c = x.shape
-    y = torch.empty((b, a2, a1, c), dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
+    y = x.new_empty((b, a2, a1, c))
+    if y.numel() == 0:
         return y
-    status = build().se_swap_axes(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()), b, a1, a2,
-        c * x.element_size(), x.element_size(),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _native.check(status, "se_swap_axes")
+    if _swap_fn is None:
+        build()
+    elem = x.element_size()
+    status = _swap_fn(x.data_ptr(), y.data_ptr(), b, a1, a2, c * elem, elem,
+                      _native.current_stream(device))
+    if status:
+        _native.check(status, "se_swap_axes")
     launches += 1
     return y
 
@@ -79,5 +94,8 @@ class _SwapSeqAxes(torch.autograd.Function):
 
 def swap_seq_axes(x: torch.Tensor) -> torch.Tensor:
     """``[B, F, T, C] -> [B, T, F, C]``, contiguous (both directions are
-    this same swap).  Differentiable: the gradient is swapped back."""
-    return _SwapSeqAxes.apply(x)
+    this same swap).  Differentiable: the gradient is swapped back; a
+    tensor that needs no gradient skips the autograd node."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SwapSeqAxes.apply(x)
+    return _swap(x)

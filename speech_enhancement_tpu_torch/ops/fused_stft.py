@@ -116,7 +116,7 @@ def fused_stft(x: torch.Tensor, n_fft: int = 400, hop: int = 100,
     status = lib.se_stft(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         batch, length, n_frames, n_fft, hop, int(comp_type == "pow"),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        _native.current_stream(x.device))
     _native.check(status, "se_stft")
     stft_launches += 1
     return out
@@ -144,7 +144,7 @@ def fused_istft(spec: torch.Tensor, n_fft: int = 400, hop: int = 100,
     status = lib.se_istft(
         ctypes.c_void_p(spec.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         batch, n_frames, n_fft, hop, out_len, int(comp_type == "pow"),
-        ctypes.c_void_p(torch.cuda.current_stream(spec.device).cuda_stream))
+        _native.current_stream(spec.device))
     _native.check(status, "se_istft")
     istft_launches += 1
     return out

@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from speech_enhancement_tpu_torch.metrics.pesq import batch_pesq_raw
 from speech_enhancement_tpu_torch.ops.stft import (
     batch_stft,
     compressed_stft,
@@ -242,9 +243,8 @@ def gan_discriminator_step(state: GanTrainState, aux: GenAux, pesq_est: torch.Te
 def host_pesq_labels(clean: torch.Tensor, other: torch.Tensor,
                      sample_rate: int = 16000) -> torch.Tensor:
     """Normalized PESQ labels ``(pesq(clean, other) - 1) / 3.5`` from the
-    native batch engine, on the device of ``other``."""
-    from speech_enhancement_tpu.metrics.pesq import batch_pesq_raw
-
+    port's native batch engine (``metrics/pesq.py``), on the device of
+    ``other``."""
     scores = batch_pesq_raw(clean.detach().float().cpu().numpy(),
                             other.detach().float().cpu().numpy(), sample_rate)
     labels = ((scores - 1.0) / 3.5).astype(np.float32)

@@ -41,7 +41,7 @@ def flax_disc():
 
 
 def _port(variables):
-    disc = Discriminator(ndf=NDF, dropout=0.0)
+    disc = Discriminator(ndf=NDF, dropout=0.0, device="cpu")
     disc.load_state_dict(discriminator_state_dict_from_flax(variables["params"],
                                                             variables["spectral"]), strict=True)
     return disc
@@ -59,7 +59,7 @@ def test_converter_matches_export_discriminator(flax_disc):
     assert set(got) == set(want)
     for key, value in want.items():
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(value), err_msg=key)
-    port = Discriminator(ndf=NDF)
+    port = Discriminator(ndf=NDF, device="cpu")
     assert set(port.state_dict()) == set(got)
     port.load_state_dict(got, strict=True)
 

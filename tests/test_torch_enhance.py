@@ -42,7 +42,7 @@ def models():
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
         compressed_stft(jnp.zeros((1, 4000)), 400, 100), deterministic=True)
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    model = TSCNet(16, 201, fused_attention=True)
+    model = TSCNet(16, 201, fused_attention=True, device="cpu")
     model.load_state_dict(state_dict_from_flax(variables["params"],
                                                variables["batch_stats"]), strict=True)
     return flax_model, variables, model
@@ -60,11 +60,11 @@ def test_enhancer_matches_jax(models, utterances, fused):
     path chip_smoke.py compares the kernels against)."""
     _, variables, port_fused = models
     flax_model = FlaxTSCNet(num_channel=16, num_features=201, fused_attention=fused)
-    model = TSCNet(16, 201, fused_attention=fused)
+    model = TSCNet(16, 201, fused_attention=fused, device="cpu")
     model.load_state_dict(port_fused.state_dict())
     want = jax_enhance.Enhancer(flax_model, variables, quantum=4000, fused_stft=fused,
                                 matmul_precision=None).enhance(utterances, batch_size=2)
-    got = enhance.Enhancer(model, quantum=4000, fused_stft=fused).enhance(utterances,
+    got = enhance.Enhancer(model, quantum=4000, fused_stft=fused, device="cpu").enhance(utterances,
                                                                          batch_size=2)
     assert [len(g) for g in got] == LENGTHS
     for g, w in zip(got, want):
@@ -78,8 +78,8 @@ def test_bf16_close_to_fp32(models, utterances):
     bf16, so this is a sanity bound, not a parity claim."""
     _, _, model = models
     x = np.stack([u[:2000] for u in utterances[:2]])
-    full = enhance.Enhancer(model, fused_stft=True).enhance_batch(x)
-    half = enhance.Enhancer(model, fused_stft=True,
+    full = enhance.Enhancer(model, fused_stft=True, device="cpu").enhance_batch(x)
+    half = enhance.Enhancer(model, fused_stft=True, device="cpu",
                             compute_dtype=torch.bfloat16).enhance_batch(x)
     assert half.dtype == np.float32 and half.shape == full.shape
     assert next(model.parameters()).dtype == torch.float32  # the caller's model is kept
@@ -90,7 +90,7 @@ def test_predict_one_matches_jax(models, utterances):
     flax_model, variables, model = models
     noisy = utterances[4][:3050]  # not a hop multiple: wrap-padded to 3100
     want = jax_enhance.predict_one(flax_model, variables, noisy)
-    got = enhance.predict_one(model, noisy)
+    got = enhance.predict_one(model, noisy, device="cpu")
     assert got.shape == want.shape == (3050,)
     assert _rel_rms(got, want) < BOUND
 

@@ -66,7 +66,7 @@ def test_state_dict_from_flax_matches_export(flax_tscnet8):
     for key, value in want.items():
         assert got[key].shape == np.asarray(value).shape, key
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(value), err_msg=key)
-    port = TSCNet(num_channel=8, num_features=201)
+    port = TSCNet(num_channel=8, num_features=201, device="cpu")
     assert set(port.state_dict()) == set(got)
     port.load_state_dict(got, strict=True)
 
@@ -94,7 +94,7 @@ def test_tscnet_matches_flax(fused):
         flax_model.init({"params": jax.random.PRNGKey(3), "dropout": jax.random.PRNGKey(4)},
                         spec, deterministic=True), 2)
     want_re, want_im = flax_model.apply(variables, spec, deterministic=True)
-    model = TSCNet(16, 201, fused_attention=fused).eval()
+    model = TSCNet(16, 201, fused_attention=fused, device="cpu").eval()
     model.load_state_dict(state_dict_from_flax(variables["params"],
                                                variables["batch_stats"]), strict=True)
     with torch.no_grad():
@@ -106,7 +106,7 @@ def test_tscnet_matches_flax(fused):
 
 
 def test_tscnet_accepts_pair_and_complex():
-    model = TSCNet(8, 201, generator=torch.Generator().manual_seed(5)).eval()
+    model = TSCNet(8, 201, device="cpu", generator=torch.Generator().manual_seed(5)).eval()
     spec = torch.tensor(np.asarray(_spec(3, (1, 2000))))
     with torch.no_grad():
         a = model(spec)
@@ -116,8 +116,8 @@ def test_tscnet_accepts_pair_and_complex():
 
 
 def test_init_is_seeded_and_follows_the_jax_initializers():
-    a = TSCNet(8, 201, generator=torch.Generator().manual_seed(7))
-    b = TSCNet(8, 201, generator=torch.Generator().manual_seed(7))
+    a = TSCNet(8, 201, device="cpu", generator=torch.Generator().manual_seed(7))
+    b = TSCNet(8, 201, device="cpu", generator=torch.Generator().manual_seed(7))
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     sd = a.state_dict()

@@ -1,6 +1,8 @@
 """The plain version of the K6 axis swap against the JAX swap_seq_axes
 (Pallas, interpret mode on the CPU), forward and VJP, with ragged F and
-T; and TSCNet(fused_relayout=True) against fused_relayout=False.
+T; TSCNet(fused_relayout=True) against fused_relayout=False; and the
+wrapper's checks, which refuse what the kernel cannot take before any
+launch.
 
 A swap is a copy: the comparisons are exact.
 """
@@ -47,7 +49,8 @@ def test_tscnet_fused_relayout_equals_plain_fold():
                        generator=torch.Generator().manual_seed(0))
     outs = {}
     for fused in (False, True):
-        model = TSCNet(8, 201, fused_relayout=fused, generator=torch.Generator().manual_seed(1))
+        model = TSCNet(8, 201, fused_relayout=fused, device="cpu",
+                       generator=torch.Generator().manual_seed(1))
         model.eval()
         re, im = model(spec)
         grads = torch.autograd.grad((re ** 2).mean() + (im ** 2).mean(),
@@ -57,3 +60,19 @@ def test_tscnet_fused_relayout_equals_plain_fold():
         assert torch.equal(a, b)
     for a, b in zip(outs[False][2], outs[True][2]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 3, 4), torch.float32),           # not 4-D
+    ((2, 3, 4, 8), torch.float16),        # not a kernel dtype
+    ((2, 3, 4, 8), torch.int32),
+    ((65536, 1, 1, 8), torch.bfloat16),   # batch past the grid
+])
+def test_swap_checks_raise_before_launch(shape, dtype):
+    with pytest.raises(ValueError):
+        fr._check(torch.empty(shape, dtype=dtype))
+
+
+def test_swap_check_passes_model_shapes():
+    for dtype in (torch.float32, torch.bfloat16):
+        fr._check(torch.empty((8, 101, 161, 64), dtype=dtype))

@@ -177,7 +177,7 @@ def _disc_states(disc_tx=None):
         disc=ModuleState(params=variables["params"], extra={"spectral": variables["spectral"]},
                          opt_state=tx.init(variables["params"])))
     host = jax.tree_util.tree_map(np.asarray, variables)
-    port_disc = Discriminator(4, dropout=0.0)
+    port_disc = Discriminator(4, dropout=0.0, device="cpu")
     port_disc.load_state_dict(discriminator_state_dict_from_flax(host["params"],
                                                                  host["spectral"]), strict=True)
     state = create_gan_state(torch.nn.Linear(1, 1), port_disc, "sgd", 1e-3)
@@ -253,8 +253,9 @@ def _port_batch(seed=0):
 
 
 def _fresh_state(remat=True, seed=7):
-    gen = TSCNet(8, 201, remat=remat, generator=torch.Generator().manual_seed(seed))
-    disc = Discriminator(4, generator=torch.Generator().manual_seed(seed + 1))
+    gen = TSCNet(8, 201, remat=remat, device="cpu",
+                 generator=torch.Generator().manual_seed(seed))
+    disc = Discriminator(4, device="cpu", generator=torch.Generator().manual_seed(seed + 1))
     return create_gan_state(gen, disc, "sgd", 1e-3)
 
 

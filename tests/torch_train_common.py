@@ -76,13 +76,13 @@ def port_state(jax_state, fused=False, dtype=torch.float32):
     """The port's GAN state (SGD lr 1e-3, disc 2e-3) on the JAX state's
     weights, in ``dtype``, with every dropout rate 0."""
     host = jax.tree_util.tree_map(np.asarray, jax_state)
-    gen = TSCNet(8, 201, fused_attention=fused)
+    gen = TSCNet(8, 201, fused_attention=fused, device="cpu")
     gen.load_state_dict(state_dict_from_flax(host.gen.params, host.gen.extra["batch_stats"]),
                         strict=True)
     for m in gen.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
-    disc = Discriminator(ndf=4, dropout=0.0)
+    disc = Discriminator(ndf=4, dropout=0.0, device="cpu")
     disc.load_state_dict(discriminator_state_dict_from_flax(host.disc.params,
                                                             host.disc.extra["spectral"]),
                          strict=True)
