@@ -8,13 +8,14 @@ Run it from the root of a checkout on a machine with a CUDA card, nvcc
 line each (timings beside the card's name and power limit):
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. build the six native sources of ``csrc/`` (five CUDA sources and the
+2. build the seven native sources of ``csrc/`` (six CUDA sources and the
    PESQ engine), one compiler each, all started together (seconds);
-   ptxas's registers and spills of K1's tensor-core instance, and its
-   resident warps per SM;
-3. K1 (both instances), K4 and K5 against their plain PyTorch versions on
-   the card, at the shapes of the serving path, with the tolerance stated
-   beside each; K1's row log-sum-exp against the plain one;
+   ptxas's registers and spills of the tensor-core instances of K1 and K2
+   and of K4 (no spills allowed), and their resident warps per SM;
+3. K1 (both instances), K4 (at n_fft 400 / hop 100 and 300 / 75) and K5
+   against their plain PyTorch versions on the card, at the shapes of the
+   serving path, with the tolerance stated beside each; K1's row
+   log-sum-exp against the plain one;
 4. the serving path itself: ``Enhancer(fused_stft=True)`` on a full-width
    ``TSCNet(64, 201, fused_attention=True)`` (seeded random weights)
    enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32; the
@@ -24,23 +25,30 @@ line each (timings beside the card's name and power limit):
 5. kernel path against plain path for ``enhance_batch`` on [32, 32000]
    (per call), K1's device time per batch from ``torch.profiler``, and the
    kernel rows of K1, K4 and K5: device time, per-call time, plain time,
-   bound and library time;
+   bound and library time (K1 at n = 1281 against SDPA over 8 batch
+   chunks; K4 and K5 against their library calls in 5 alternating rounds,
+   medians and per-round ratios printed);
 6. K2 (the Shaw-attention backward, through the autograd route whose
-   forward is K1) and K6 (the axis swap, forward and backward) against
-   their plain versions at training shapes;
+   forward is K1; both instances, B'=3232 n=321 bf16 included) and K6 (the
+   axis swap, forward and backward) against their plain versions at
+   training shapes;
 7. the training path itself: ``make_fused_gan_train_step`` (generator
    step, host PESQ labels from the port's native engine, self-correcting
    discriminator step) on a full-width ``TSCNet(64, 201,
    fused_attention=True)`` and ``Discriminator(16)``, arch scp, MSE,
    SGD-Nesterov lr 0.01 (discriminator 0.02), batches of 8 x 1 s
    tone-plus-noise; fp32 and bf16 steps, finite losses, a falling
-   generator loss on one repeated batch, K1 and K2 launched; one step of
-   the kernel path against the plain path (``fused_attention=False``), and
-   one with ``fused_relayout=True`` (K6 launched);
+   generator loss on one repeated batch, both instances of K1 and K2
+   launched; one step of the kernel path against the plain path
+   (``fused_attention=False``), and one with ``fused_relayout=True`` (K6
+   launched);
 8. training timings (CUDA events, median after warm-up): generator step,
    host labels, discriminator step, whole step, kernel path against plain
-   path, fp32 and bf16; the kernel rows of K2 and K6; peak device memory
-   of a step with and without rematerialization.
+   path, fp32 and bf16; the bf16 step's device time by kernel and its
+   busy share (``torch.profiler``); the kernel rows of K2 (tensor-core at
+   B'=808 n=161 and B'=3232 n=321, CUDA-core fp32 at B'=808 n=161, each
+   against the autograd backward of the SDPA yardstick) and K6; peak
+   device memory of a step with and without rematerialization.
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -175,8 +183,10 @@ def library(fn) -> float | None:
 
 
 def row(name: str, dev: float, call: float, plain: float, bnd: tuple, nbytes: float,
-        lib: float | None, card: str, extra: str = "") -> dict:
-    """Print one kernel row; returns its numbers for the kernels line."""
+        lib: float | None, card: str, extra: str = "", *, shape: str,
+        dtype: torch.dtype) -> dict:
+    """Print one kernel row; returns its numbers for the kernels line, with
+    the shape and dtype they were measured at."""
     warm = ("L2-warm" if nbytes < L2_BYTES else "L2-cold") + f" ({nbytes / 1e6:.2f} MB moved)"
     lib_s = "n/a" if lib is None else f"{lib:.4f} ms"
     print(f"    {name}: device {dev:.4f} ms, per call {call:.4f} ms, plain {plain:.4f} ms, "
@@ -184,7 +194,8 @@ def row(name: str, dev: float, call: float, plain: float, bnd: tuple, nbytes: fl
           f"library {lib_s}; {warm}{extra} ({card})", flush=True)
     return {"ms": dev, "device_ms": dev, "call_ms": call, "plain_ms": plain,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
-            "l2_warm": nbytes < L2_BYTES}
+            "l2_warm": nbytes < L2_BYTES, "shape": shape,
+            "dtype": {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]}
 
 
 def attention_bound(b, n, dtype, h=4, d=16):
@@ -233,6 +244,31 @@ def chunked(fn, chunk, *args):
     b = args[0].shape[0]
     return torch.cat([fn(*(a[i:i + chunk] for a in args[:3]), *args[3:])
                       for i in range(0, b, chunk)])
+
+
+def ptxas_report(log: str) -> dict[str, list[str]]:
+    """ptxas -v's register and spill lines, by the mangled kernel name."""
+    report, kernel = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("registers" in line or "spill" in line):
+            report.setdefault(kernel, []).append(line.strip())
+    return report
+
+
+def in_turns(kernel_fn, library_fn, rounds: int = 5):
+    """Device ms of a kernel and its library call, measured in alternating
+    rounds (kernel, library, library, kernel, ...): (kernel medians,
+    library medians, per-round ratios library / kernel)."""
+    kernel, lib = [], []
+    for r in range(rounds):
+        for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+            if which == 0:
+                kernel.append(device_ms(kernel_fn))
+            else:
+                lib.append(device_ms(library_fn))
+    return kernel, lib, [b / a for a, b in zip(kernel, lib)]
 
 
 def rel_rms_t(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -285,34 +321,58 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     )
     from speech_enhancement_tpu_torch.train.gan import host_pesq_labels
 
-    errs = {"K2": 0.0, "K6": 0.0}
+    errs = {"K2": 0.0, "K2mma": 0.0, "K6": 0.0}
     rows = {}
 
     # 6. K2 and K6 against their plain versions, at training shapes
     print("[6 training kernels vs plain] K2 fp32: dq, dk, dv within rtol 1e-4 + atol 1e-5 "
           "(summation order), dtable relative RMS < 1e-5 (fp32 atomics); bf16: relative "
-          "RMS < 1e-2 for each (roundings of P and dS*scale may flip); K6 exact", flush=True)
+          "RMS < 1e-2 for each (roundings of P and dS*scale may flip); bf16 at d 16 and 32 "
+          "takes the tensor-core instance, the rest the CUDA-core one; K6 exact", flush=True)
     both = (torch.float32, torch.bfloat16)
     names = ("dq", "dk", "dv", "dtable")
-    # B' = 808 n = 161: the time conformer of batch 8 x 1 s; n = 1281: the
-    # length at which the JAX package took K3; max_pos_emb 8: clipped
-    # table rows; then the other head dims K2 is built for
-    for b, n, max_pos, d in ((808, 161, 512, 16), (8, 1281, 512, 16), (3, 100, 8, 16),
-                             (8, 1281, 8, 16), (6, 70, 512, 4), (6, 70, 512, 8),
-                             (6, 70, 512, 32)):
-        for dtype in both:
+
+    def bwd_reference(q, k, v, table, g, max_pos, chunk=404):
+        """shaw_attention_bwd_reference over batch chunks (its fp32 logits
+        of B'=3232 n=321 would take 5 GB a tensor); the table in fp32 (its
+        values are the table's), so that the chunks' dtable sum in fp32."""
+        parts = [fa.shaw_attention_bwd_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
+                                                 table.float(), g[i:i + chunk], max_pos)
+                 for i in range(0, q.shape[0], chunk)]
+        return (*(torch.cat([p[j] for p in parts]) for j in range(3)),
+                sum(p[3] for p in parts).to(table.dtype))
+
+    # B' = 808 n = 161: the time conformer of batch 8 x 1 s; B' = 3232
+    # n = 321 (bf16): 2 s at batch 32; n = 1281: the length at which the
+    # JAX package took K3; max_pos_emb 8: clipped table rows; then the
+    # other head dims K2 is built for, d=32 at n = 161 and at n = 1281
+    # unclipped (the tensor-core pass A's largest band) included
+    for b, n, max_pos, d, dtypes in ((808, 161, 512, 16, both),
+                                     (3232, 321, 512, 16, (torch.bfloat16,)),
+                                     (8, 1281, 512, 16, both), (3, 100, 8, 16, both),
+                                     (8, 1281, 8, 16, both), (8, 1281, 8, 32, both),
+                                     (6, 70, 512, 4, both), (6, 70, 512, 8, both),
+                                     (6, 70, 512, 32, both), (3, 100, 8, 32, both),
+                                     (6, 321, 512, 32, both), (808, 161, 512, 32, both),
+                                     (8, 1281, 512, 32, both)):
+        for dtype in dtypes:
             q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
             g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
             out = fa.fused_shaw_attention(*leaves, max_pos)
+            launched = fa.bwd_launches + fa.bwd_mma_launches
             got = torch.autograd.grad(out, leaves, g)
-            want = fa.shaw_attention_bwd_reference(q, k, v, table, g, max_pos)
+            launched = fa.bwd_launches + fa.bwd_mma_launches - launched
+            del leaves, out
+            want = bwd_reference(q, k, v, table, g, max_pos)
             torch.cuda.synchronize()
+            instance = fa.kernel_instance(dtype, d)
+            key = "K2mma" if instance == "tensor_core" else "K2"
             report = []
             ok = all(a.dtype == dtype and a.shape == w.shape for a, w in zip(got, want))
             for name, a, w in zip(names, got, want):
                 err = float((a.float() - w.float()).abs().max())
-                errs["K2"] = max(errs["K2"], err)
+                errs[key] = max(errs[key], err)
                 rr = rel_rms_t(a, w)
                 if dtype == torch.bfloat16:
                     ok = ok and rr < 1e-2
@@ -321,9 +381,10 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                 else:
                     ok = ok and within(a, w, 1e-4, 1e-5)[1]
                 report.append(f"{name} {err:.2e}/{rr:.1e}")
-            check(ok, f"K2 B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: max abs err"
-                      f"/relative RMS {', '.join(report)}")
-            del q, k, v, table, g, leaves, out, got, want
+            check(ok and launched == 1,
+                  f"K2 ({instance}) B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: max "
+                  f"abs err/relative RMS {', '.join(report)}")
+            del q, k, v, table, g, got, want
         torch.cuda.empty_cache()
     for shape in ((8, 101, 161, 64), (32, 101, 321, 64)):  # [B, F, T, C] of 1 s and 2 s
         for dtype in both:
@@ -356,7 +417,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                                               compute_dtype=None if dtype == torch.float32
                                               else dtype) for dtype in both}
     states = {dtype: new_state() for dtype in both}
-    fa.launches = fa.mma_launches = fa.bwd_launches = fr.launches = 0
+    fa.launches = fa.mma_launches = fa.bwd_launches = fa.bwd_mma_launches = fr.launches = 0
     t0 = time.perf_counter()
     history = {dtype: [] for dtype in both}
     for dtype in both:
@@ -368,7 +429,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"K1 tensor-core": fa.mma_launches, "K1 CUDA-core": fa.launches,
-                "K2": fa.bwd_launches}
+                "K2 tensor-core": fa.bwd_mma_launches, "K2 CUDA-core": fa.bwd_launches}
     print(f"[7 training path] make_fused_gan_train_step, TSCNet(64, 201, fused_attention=True) "
           f"+ Discriminator(16), scp, batch 8 x 16000, 4 steps each fp32 and bf16 in "
           f"{train_s:.2f} s (first calls included); launches {launches}", flush=True)
@@ -449,6 +510,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                              + [events[0].elapsed_time(events[3])])
         return [statistics.median(t[j] for t in times) for j in range(4)]
 
+    whole_step = {}  # (dtype, path): median whole-step ms
     for dtype in both:
         compute_dtype = None if dtype == torch.float32 else dtype
         order = (("kernel", True), ("plain", False), ("plain", False), ("kernel", True))
@@ -459,38 +521,77 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
             del state
         for label, runs_ in collected.items():
             med = [statistics.median(r[j] for r in runs_) for j in range(4)]
+            whole_step[dtype, label] = med[3]
             print(f"    training step {dtype} {label} path: generator {med[0]:.3f} ms, host "
                   f"labels {med[1]:.3f} ms, discriminator {med[2]:.3f} ms, whole step "
                   f"{med[3]:.3f} ms ({card})", flush=True)
     torch.cuda.empty_cache()
 
-    for b, n in ((808, 161), (3232, 321)):
-        q, k, v, table = attention_operands(b, n, torch.bfloat16, gen)
-        g = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    # where the bf16 step's time goes: torch.profiler (CUDA entries only)
+    # over 3 steps of the kernel path after 2 warm-up steps
+    from torch.profiler import ProfilerActivity, profile
+    state = new_state()
+    for i in range(2):
+        steps[torch.bfloat16](state, *batches[i], i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(2, 5):
+            steps[torch.bfloat16](state, *batches[i % len(batches)], i)
+        torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) / 3 * 1e3
+    step_ms = whole_step[torch.bfloat16, "kernel"]
+    kernel_us = [(e.key, e.self_device_time_total / 3, e.count // 3) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(us for _, us, _ in kernel_us) / 1e3
+    k1_ms = sum(us for key, us, _ in kernel_us if "shaw_attention" in key) / 1e3
+    k2_ms = sum(us for key, us, _ in kernel_us if "bwd_" in key and "_kernel" in key) / 1e3
+    print(f"    torch.profiler, bf16 kernel-path step (3 after 2 warm-ups): {busy_ms:.3f} ms of "
+          f"device kernel time per step against the {step_ms:.3f} ms step above: busy share "
+          f"{busy_ms / step_ms:.3f} (profiled steps {profiled_ms:.3f} ms each); K1 {k1_ms:.3f} "
+          f"ms, K2 {k2_ms:.3f} ms per step ({card})", flush=True)
+    print("    info busiest kernels per step: " + "; ".join(
+        f"{us / 1e3:.3f} ms x{calls} {key[:50]}"
+        for key, us, calls in sorted(kernel_us, key=lambda e: -e[1])[:8]), flush=True)
+    del state, prof
+    torch.cuda.empty_cache()
+
+    # K2: the tensor-core instance (bf16) at the training shape and at 2 s
+    # x batch 32, the CUDA-core instance (fp32) at the training shape
+    for b, n, dtype in ((808, 161, torch.bfloat16), (3232, 321, torch.bfloat16),
+                        (808, 161, torch.float32)):
+        q, k, v, table = attention_operands(b, n, dtype, gen)
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
         out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, 0.25, with_lse=True)
         kernel = lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g)  # noqa: E731
         call, plain = time_pair(kernel, lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
                                 warmup=1, reps=6)
         # eight n x n x d contractions (s, the bias, dP, dV, dQ and its
         # bias term, dK, dtable); q, k, v, out, g, lse in, dq, dk, dv out
-        nbytes = 8 * q.numel() * 2 + lse.numel() * 4 + table.numel() * 2
-        bnd = bound(16.0 * b * 4 * n * n * 16, nbytes)
-        lib = None
-        if b == 808:
-            # the yardstick's backward: autograd through the Shaw-bias build
-            # and scaled_dot_product_attention (K1's library call)
-            import torch.nn.functional as F
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
-            qt, kt, vt = (t.transpose(1, 2) for t in leaves[:3])
-            bias = torch.einsum("bhid,ijd->bhij", qt,
-                                leaves[3][fa.relative_index(n, 512, q.device)]) * 0.25
-            y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2)
-            lib = library(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
-            del leaves, qt, kt, vt, bias, y
-        r = row(f"K2 B'={b} n={n} bf16", device_ms(kernel), call, plain, bnd, nbytes, lib, card,
-                "; library: autograd backward of the bias build and SDPA" if b == 808 else "")
-        if b == 808:
+        elem = torch.finfo(dtype).bits // 8
+        nbytes = 8 * q.numel() * elem + lse.numel() * 4 + table.numel() * elem
+        bnd = bound(16.0 * b * 4 * n * n * 16, nbytes, dtype)
+        dev = device_ms(kernel)
+        # the yardstick's backward: autograd through the Shaw-bias build and
+        # scaled_dot_product_attention (K1's library call)
+        import torch.nn.functional as F
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+        qt, kt, vt = (t.transpose(1, 2) for t in leaves[:3])
+        bias = torch.einsum("bhid,ijd->bhij", qt,
+                            leaves[3][fa.relative_index(n, 512, q.device)]) * 0.25
+        y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2)
+        lib = library(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
+        del leaves, qt, kt, vt, bias, y
+        instance = fa.kernel_instance(dtype, 16)
+        r = row(f"K2 {instance.replace('_', '-')} B'={b} n={n} {dtype}", dev, call, plain, bnd,
+                nbytes, lib, card, "; library: autograd backward of the bias build and SDPA",
+                shape=f"B'={b} n={n} h=4 d=16", dtype=dtype)
+        if instance == "cuda_core":
             rows["K2"] = r
+        elif n == 161:
+            rows["K2mma"] = r
+        else:
+            rows["K2mma"]["n321"] = r
         del q, k, v, table, g, out, lse
         torch.cuda.empty_cache()
     for shape, target in (((8, 101, 161, 64), "no slower than transpose().contiguous()"),
@@ -512,7 +613,8 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         lib = library(lambda: x.transpose(1, 2).contiguous())
         r = row(f"K6 {list(shape)} bf16", dev, call, plain, bound(0.0, nbytes), nbytes, lib, card,
                 f"; host enqueue per call: wrapper {host['kernel']:.1f} us, "
-                f"transpose().contiguous() {host['torch']:.1f} us; aim: {target}")
+                f"transpose().contiguous() {host['torch']:.1f} us; aim: {target}",
+                shape=f"[B, F, T, C]={list(shape)}", dtype=torch.bfloat16)
         r["host_us"] = host["kernel"]
         if shape[0] == 8:
             rows["K6"] = r
@@ -568,29 +670,43 @@ def main() -> int:
 
     # 2. build: one compiler per source, all at once
     t0 = time.perf_counter()
-    builds = (fs.build, fa.build, fa.build_mma, fa.build_bwd, fr.build, pesq.build)
+    builds = (fs.build, fa.build, fa.build_mma, fa.build_bwd, fa.build_bwd_mma, fr.build,
+              pesq.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for build in [pool.submit(b) for b in builds]:
             build.result()
     built = ", ".join(f"{name} {sec:.1f} s" for name, sec in _native.build_seconds.items())
     print(f"[2 build] {built}; wall {time.perf_counter() - t0:.1f} s (nvcc sm_90a and g++, "
           f"in parallel)", flush=True)
-    report, head_dim = {}, None  # ptxas -v of each d instance
-    for line in _native.build_logs.get("shaw_attention_mma", "").splitlines():
-        if "Compiling entry function" in line:
-            head_dim = line.split("shaw_attention_mma_kernelILi")[1].split("E")[0]
-        elif head_dim and ("registers" in line or "spill" in line):
-            report.setdefault(head_dim, []).append(line.strip())
-    for d, lines in sorted(report.items()):
-        print(f"    info ptxas -v, K1 tensor-core instance d={d}: {'; '.join(lines)}", flush=True)
-    check(sorted(report) == ["16", "32"]
-          and all(" 0 bytes spill stores, 0 bytes spill loads" in line
-                  for lines in report.values() for line in lines if "spill" in line),
-          "K1 tensor-core instance: ptxas reports no spills at d=16 and d=32")
+    for library, kernels, what in (
+            ("shaw_attention_mma", ["shaw_attention_mma_kernelILi16", "shaw_attention_mma_kernelILi32"],
+             "K1 tensor-core instance"),
+            ("shaw_attention_bwd_mma", ["bwd_query_mma_kernelILi16", "bwd_key_mma_kernelILi16",
+                                        "bwd_query_mma_kernelILi32", "bwd_key_mma_kernelILi32"],
+             "K2 tensor-core instance"),
+            ("stft", ["11stft_kernel"], "K4")):  # the mangled name's length tells it from istft
+        report = ptxas_report(_native.build_logs.get(library, ""))
+        for name, lines in sorted(report.items()):
+            short = next((k.lstrip("0123456789") for k in kernels if k in name), name)
+            print(f"    info ptxas -v, {what} {short}: {'; '.join(lines)}", flush=True)
+        found = [k for k in kernels if any(k in name for name in report)]
+        check(found == kernels and all(" 0 bytes spill stores, 0 bytes spill loads" in line
+                                       for lines in report.values() for line in lines
+                                       if "spill" in line),
+              f"{what}: ptxas reports no spills in {', '.join(kernels)}")
     for d in (16, 32):
         warps = 4 * fa.mma_occupancy(d)
         check(warps >= 8, f"K1 tensor-core instance d={d}: {warps} resident warps per SM "
                           f"(at least 8)")
+    for d in (16, 32):
+        for n in (161, 321, 1281):
+            blocks_a, blocks_b = fa.bwd_mma_occupancy(d, n)
+            line = (f"K2 tensor-core instance d={d} n={n}: {4 * blocks_a} resident warps per SM "
+                    f"in pass A (its table band grows with n), {4 * blocks_b} in pass B")
+            if n == 1281:  # the long bucket: the band of 1025 clipped rows fills shared memory
+                print(f"    info {line}", flush=True)
+            else:
+                check(min(blocks_a, blocks_b) >= 2, line + " (at least 8)")
 
     # 3. kernels against their plain versions, main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -633,16 +749,23 @@ def main() -> int:
                   f"lse max abs err {lse_err:.2e} (atol 1e-4)")
             del q, k, v, table, got, lse, want, rel, logits
         torch.cuda.empty_cache()
-    x = torch.randn(32, 32000, device="cuda", generator=gen)  # RMS 1, as normalized audio
-    spec = fs.fused_stft(x)
+    # K4: 3xTF32 sums (about fp32) in another order; compression amplifies
+    # the error of near-empty bins (rtol 1e-4, atol 2e-4, as
+    # tests/test_pallas_stft.py); the main path's geometry, then n_fft 300,
+    # hop 75 (K padded 151 -> 152, a ragged last frame tile)
+    for shape, n_fft, hop in (((32, 32000), 400, 100), ((8, 24037), 300, 75)):
+        x = torch.randn(*shape, device="cuda", generator=gen)  # RMS 1, as normalized audio
+        spec = fs.fused_stft(x, n_fft, hop)
+        spec_ref = fs.stft_reference(x, n_fft, hop)
+        torch.cuda.synchronize()
+        err, ok = within(torch.view_as_real(spec), torch.view_as_real(spec_ref), 1e-4, 2e-4)
+        errs["K4"] = max(errs["K4"], err)
+        check(ok and spec.shape == spec_ref.shape == (shape[0], 1 + shape[1] // hop,
+                                                      n_fft // 2 + 1),
+              f"K4 stft+compress {list(shape)} n_fft {n_fft} hop {hop} fp32: max abs err "
+              f"{err:.3e} (rtol 1e-4, atol 2e-4)")
+    x = torch.randn(32, 32000, device="cuda", generator=gen)
     spec_ref = fs.stft_reference(x)
-    torch.cuda.synchronize()
-    # K4: fp32 DFT sums in another order; compression amplifies the error
-    # of near-empty bins (rtol 1e-4, atol 2e-4, as tests/test_pallas_stft.py)
-    err, ok = within(torch.view_as_real(spec), torch.view_as_real(spec_ref), 1e-4, 2e-4)
-    errs["K4"] = err
-    check(ok and spec.shape == spec_ref.shape == (32, 321, 201),
-          f"K4 stft+compress [32, 32000] fp32: max abs err {err:.3e} (rtol 1e-4, atol 2e-4)")
     # K5: fp32 sums of 201 products of order-1 values in another order;
     # 31963 leaves a ragged last block
     for length in (32000, 31963):
@@ -740,7 +863,8 @@ def main() -> int:
                         device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call,
                         plain, bnd, nbytes, alone, card,
                         f"; SDPA with the bias built beforehand "
-                        f"{'n/a' if chain is None else f'{chain:.4f} ms'}")
+                        f"{'n/a' if chain is None else f'{chain:.4f} ms'}",
+                        shape="B'=3232 n=321 h=4 d=16", dtype=torch.bfloat16)
     rows["K1mma"]["library_chain_ms"] = chain
     del q, k, v, table
     torch.cuda.empty_cache()
@@ -749,10 +873,15 @@ def main() -> int:
                             lambda: chunked(fa.shaw_attention_reference, 202, q, k, v, table),
                             warmup=1, reps=2)
     bnd, nbytes = attention_bound(3232, 1281, torch.bfloat16)
-    long = row("K1 tensor-core B'=3232 n=1281 bf16 (8 s at batch 32)",
-               device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call,
-               plain, bnd, nbytes, None, card, "; plain in 16 chunks of 202, SDPA's "
-               "26 GB bias does not fit")
+    dev = device_ms(lambda: fa.fused_shaw_attention(q, k, v, table))
+    # SDPA's bias would take 26 GB whole: its yardstick is 8 chunks of
+    # B' = 404 (a 5.3 GB bias each, built beforehand), one chunk timed, x 8
+    chunk_ms, _ = sdpa_yardstick(q[:404], k[:404], v[:404], table)
+    lib_long = None if chunk_ms is None else 8 * chunk_ms
+    long = row("K1 tensor-core B'=3232 n=1281 bf16 (8 s at batch 32)", dev, call,
+               plain, bnd, nbytes, lib_long, card, "; plain in 16 chunks of 202; library: "
+               "SDPA with the bias, 8 chunks of B'=404, one timed x 8",
+               shape="B'=3232 n=1281 h=4 d=16", dtype=torch.bfloat16)
     rows["K1mma"]["n1281"] = long
     del q, k, v, table
     torch.cuda.empty_cache()
@@ -772,7 +901,8 @@ def main() -> int:
     bnd, nbytes = attention_bound(3232, 321, torch.float32)
     rows["K1"] = row("K1 CUDA-core B'=3232 n=321 fp32",
                      device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call, plain,
-                     bnd, nbytes, sdpa_yardstick(q, k, v, table)[0], card)
+                     bnd, nbytes, sdpa_yardstick(q, k, v, table)[0], card,
+                     shape="B'=3232 n=321 h=4 d=16", dtype=torch.float32)
     del q, k, v, table
     torch.cuda.empty_cache()
 
@@ -784,21 +914,36 @@ def main() -> int:
     # the compression; the bytes (20.6 MB) bound it, not these 0.12 GFLOP
     fft_flops = 32 * 321 * (2.5 * 400 * math.log2(400) + 400 + 8 * 201)
     stft_bytes = x.numel() * 4 + spec.numel() * 8
-    call, plain = time_pair(lambda: fs.fused_stft(x), lambda: fs.stft_reference(x))
-    rows["K4"] = row("K4 stft+compress [32, 32000] fp32", device_ms(lambda: fs.fused_stft(x)),
-                     call, plain, bound(fft_flops, stft_bytes, torch.float32), stft_bytes,
-                     library(lambda: fs._gated_rescale(torch.stft(
-                         x, 400, 100, window=window, return_complex=True).transpose(1, 2),
-                         -0.35)), card, "; library: torch.stft, then the compression")
-    call, plain = time_pair(lambda: fs.fused_istft(spec, length=32000),
-                            lambda: fs.istft_reference(spec, length=32000))
-    rows["K5"] = row("K5 uncompress+istft [32, 321, 201] fp32",
-                     device_ms(lambda: fs.fused_istft(spec, length=32000)), call, plain,
-                     bound(fft_flops, stft_bytes, torch.float32), stft_bytes,
-                     library(lambda: torch.istft(
-                         fs._gated_rescale(spec, (1.0 / 0.3 - 1.0) / 2.0).transpose(1, 2),
-                         400, 100, window=window, length=32000)), card,
-                     "; library: the uncompression, then torch.istft")
+    # K4 and K5 against their library calls in turns (5 rounds of kernel
+    # then library, or library then kernel, device_ms each); the rows carry
+    # the medians
+    pairs = {
+        "K4": (lambda: fs.fused_stft(x), lambda: fs._gated_rescale(torch.stft(
+            x, 400, 100, window=window, return_complex=True).transpose(1, 2), -0.35),
+            lambda: fs.stft_reference(x), "K4 stft+compress [32, 32000] fp32",
+            "torch.stft, then the compression", "[32, 32000] n_fft=400 hop=100"),
+        "K5": (lambda: fs.fused_istft(spec, length=32000), lambda: torch.istft(
+            fs._gated_rescale(spec, (1.0 / 0.3 - 1.0) / 2.0).transpose(1, 2), 400, 100,
+            window=window, length=32000), lambda: fs.istft_reference(spec, length=32000),
+            "K5 uncompress+istft [32, 321, 201] fp32", "the uncompression, then torch.istft",
+            "[32, 321, 201] n_fft=400 hop=100"),
+    }
+    for key, (kernel_fn, library_fn, plain_fn, label, lib_label, shape) in pairs.items():
+        call, plain = time_pair(kernel_fn, plain_fn)
+        kern, lib, ratios = in_turns(kernel_fn, library_fn)
+        kern_med, lib_med = statistics.median(kern), statistics.median(lib)
+        verdict = "wins" if kern_med < lib_med else "loses"
+        rows[key] = row(label, kern_med, call, plain, bound(fft_flops, stft_bytes, torch.float32),
+                        stft_bytes, lib_med, card,
+                        f"; library: {lib_label}; in turns, 5 rounds: kernel "
+                        f"{', '.join(f'{m:.4f}' for m in kern)} ms, library "
+                        f"{', '.join(f'{m:.4f}' for m in lib)} ms, library/kernel "
+                        f"{', '.join(f'{r:.2f}' for r in ratios)}: the kernel {verdict}",
+                        shape=shape, dtype=torch.float32)
+        rows[key]["in_turns"] = {"kernel_ms": kern, "library_ms": lib}
+        if key == "K4":
+            check(kern_med <= lib_med, f"K4 device time {kern_med:.4f} ms no higher than "
+                                       f"{lib_label} {lib_med:.4f} ms (medians in turns)")
     del x, spec
     torch.cuda.empty_cache()
 
@@ -822,10 +967,16 @@ def main() -> int:
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
          "launches": launches["K1 CUDA-core"] + tl["K1 CUDA-core"],
          "max_abs_err": errs["K1"], **rows["K1"]},
-        {"name": "shaw_attention_bwd", "route": "cuda",
+        {"name": "shaw_attention_bwd_tensor_core", "route": "cuda",
+         "source": f"{pkg}/csrc/shaw_attention_bwd_mma.cu",
+         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
+         "launches": tl["K2 tensor-core"], "max_abs_err": train["errs"]["K2mma"],
+         **train["rows"]["K2mma"]},
+        {"name": "shaw_attention_bwd_cuda_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         "launches": tl["K2"], "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
+         "launches": tl["K2 CUDA-core"], "max_abs_err": train["errs"]["K2"],
+         **train["rows"]["K2"]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
          "launches": launches["K4"], "max_abs_err": errs["K4"], **rows["K4"]},

@@ -51,12 +51,18 @@
 // bandwidth; no tensor cores yet.  No loop here descends with min/max
 // bounds (the nvcc 12.9 fault recorded for K5 in PERF.md).
 //
+// This is the CUDA-core instance: fp32 at head dims 4, 8, 16 and 32, and
+// bf16 at 4 and 8.  bf16 at 16 and 32 is the tensor-core instance
+// (csrc/shaw_attention_bwd_mma.cu), and the entry point here refuses it.
+//
 // The C entry point launches pass A then pass B on the caller's stream and
 // returns cudaGetLastError() after them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "cvt.cuh"
 
@@ -393,17 +399,22 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
       return launch<T, 8>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
                           dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn, v_sb,
                           v_sn, max_pos, scale, groups, band_rows, stream);
-    case 16:
-      return launch<T, 16>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
-                           dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn, v_sb,
-                           v_sn, max_pos, scale, groups, band_rows, stream);
+    case 16:  // bf16 at d 16 and 32: the tensor-core instance's
+      if constexpr (std::is_same_v<T, float>)
+        return launch<T, 16>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
+                             dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn,
+                             v_sb, v_sn, max_pos, scale, groups, band_rows,
+                             stream);
+      break;
     case 32:
-      return launch<T, 32>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
-                           dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn, v_sb,
-                           v_sn, max_pos, scale, groups, band_rows, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      if constexpr (std::is_same_v<T, float>)
+        return launch<T, 32>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
+                             dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn,
+                             v_sb, v_sn, max_pos, scale, groups, band_rows,
+                             stream);
+      break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -415,7 +426,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // dtype of q.  lse (from the forward) and delta (scratch): [batch, h, n]
 // fp32.  dtable: [2 * max_pos + 1, d] fp32, zeroed by the caller.  groups:
 // pass A's grid-stride over the batch; band_rows: the largest block band,
-// min(64 + n - 1, 2 * max_pos + 1).  is_bf16 selects bfloat16 over fp32.
+// min(64 + n - 1, 2 * max_pos + 1).  is_bf16 selects bfloat16 over fp32;
+// bf16 at d 16 or 32 returns cudaErrorInvalidValue
+// (shaw_attention_bwd_mma.cu takes it).
 extern "C" int se_shaw_attention_bwd(
     const void* q, const void* k, const void* v, const void* table,
     const void* out, const void* g, const void* lse, void* delta, void* dq,

@@ -7,7 +7,9 @@ Replaces ``speech_enhancement_tpu/ops/pallas_attention.py``: the forward
 K1 has two instances: bf16 at head dims 16 and 32 runs on tensor cores
 (``csrc/shaw_attention_mma.cu``), fp32 and bf16 at head dims 4 and 8 on
 CUDA cores (``csrc/shaw_attention.cu``); :func:`kernel_instance` picks one
-from (dtype, head dim).  K2 is ``csrc/shaw_attention_bwd.cu``.  Each
+from (dtype, head dim).  K2 has the same two instances and the same
+dispatch: ``csrc/shaw_attention_bwd_mma.cu`` (bf16 at head dims 16 and 32,
+tensor cores) and ``csrc/shaw_attention_bwd.cu`` (the rest).  Each
 source's header says what bounds it on an H100 and how it is laid out.
 ``ShawAttention(fused=True)`` (the time conformer of
 ``TSCNet(fused_attention=True)``) calls :func:`fused_shaw_attention`,
@@ -31,7 +33,9 @@ from speech_enhancement_tpu_torch.ops import _native
 __all__ = [
     "build",
     "build_bwd",
+    "build_bwd_mma",
     "build_mma",
+    "bwd_mma_occupancy",
     "fused_shaw_attention",
     "fused_shaw_attention_bwd",
     "fused_shaw_attention_fwd",
@@ -43,14 +47,16 @@ __all__ = [
 ]
 
 # kernel launches since import (or since a caller reset them): K1's CUDA-core
-# instance, K1's tensor-core instance, K2
+# instance, K1's tensor-core instance, K2's CUDA-core and tensor-core instances
 launches = 0
 mma_launches = 0
 bwd_launches = 0
+bwd_mma_launches = 0
 
 _HEAD_DIMS = (4, 8, 16, 32)  # the head dims K1 and K2 are built for
 _DTYPES = (torch.float32, torch.bfloat16)
-# (dtype, head dim) of the tensor-core instance, csrc/shaw_attention_mma.cu
+# (dtype, head dim) of the tensor-core instances, csrc/shaw_attention_mma.cu
+# and csrc/shaw_attention_bwd_mma.cu
 _TENSOR_CORE = {(torch.bfloat16, 16), (torch.bfloat16, 32)}
 # its tiling (kWarps * 16 query rows per block, kBN keys per tile, kWarpBand
 # band rows per warp, R' pitch kRP), mirrored by shaw_bias_skewed
@@ -77,6 +83,15 @@ _SIGNATURES_BWD = {
     # band_rows, stream
     "se_shaw_attention_bwd": [_P] * 12 + [_I] * 5 + [_L] * 6
                              + [_I, _F, _I, _I, _P],
+}
+_SIGNATURES_BWD_MMA = {
+    # q, k, v, table, out, g, lse, delta, dq, dk, dv, dtable, batch, n, h, d,
+    # q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, max_pos, scale, groups, band_rows,
+    # stream
+    "se_shaw_attention_bwd_mma": [_P] * 12 + [_I] * 4 + [_L] * 6 + [_I, _F, _I, _I, _P],
+    # d, band_rows, *blocks of pass A, *blocks of pass B
+    "se_shaw_attention_bwd_mma_occupancy": [_I, _I, ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_int)],
 }
 _BM = 64  # query rows per block of K2's pass A (csrc/shaw_attention_bwd.cu kBM)
 _SMEM_BYTES = 227 * 1024  # shared memory a block may use on an H100
@@ -105,19 +120,36 @@ def mma_occupancy(d: int) -> int:
 
 
 def kernel_instance(dtype: torch.dtype, d: int) -> str:
-    """Which K1 instance takes operands of ``dtype`` at head dim ``d``:
-    ``"tensor_core"`` (bf16, d 16 or 32: mma.sync, fp32 accumulate) or
-    ``"cuda_core"`` (fp32, whose rtol 1e-4 bound TF32 would break, and bf16
-    at d 4 or 8, below one mma k-step).  Dispatch, not a fallback: a
-    failed build or launch of the chosen instance raises."""
+    """Which instance of K1, and of K2, takes operands of ``dtype`` at head
+    dim ``d``: ``"tensor_core"`` (bf16, d 16 or 32: mma.sync, fp32
+    accumulate) or ``"cuda_core"`` (fp32, whose rtol 1e-4 bound TF32 would
+    break, and bf16 at d 4 or 8, below one mma k-step).  Dispatch, not a
+    fallback: a failed build or launch of the chosen instance raises."""
     if dtype not in _DTYPES or d not in _HEAD_DIMS:
-        raise ValueError(f"no K1 instance for {dtype} at head dim {d}")
+        raise ValueError(f"no K1 or K2 instance for {dtype} at head dim {d}")
     return "tensor_core" if (dtype, d) in _TENSOR_CORE else "cuda_core"
 
 
 def build_bwd() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/shaw_attention_bwd.cu`` (K2)."""
     return _native.load("shaw_attention_bwd", _SIGNATURES_BWD)
+
+
+def build_bwd_mma() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/shaw_attention_bwd_mma.cu``
+    (K2, the bf16 tensor-core instance)."""
+    return _native.load("shaw_attention_bwd_mma", _SIGNATURES_BWD_MMA)
+
+
+def bwd_mma_occupancy(d: int, n: int, max_pos_emb: int = 512) -> tuple[int, int]:
+    """Resident blocks (of 4 warps) per SM of the tensor-core K2's pass A,
+    whose band of clipped table rows grows with ``n``, and pass B at head
+    dim ``d``, as the CUDA runtime computes them for the built kernels."""
+    a, b = ctypes.c_int(0), ctypes.c_int(0)
+    band_rows = min(_BM + n - 1, 2 * max_pos_emb + 1)
+    _native.check(build_bwd_mma().se_shaw_attention_bwd_mma_occupancy(
+        d, band_rows, ctypes.byref(a), ctypes.byref(b)), "se_shaw_attention_bwd_mma_occupancy")
+    return a.value, b.value
 
 
 def relative_index(n: int, max_pos_emb: int, device=None) -> torch.Tensor:
@@ -306,13 +338,14 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              lse: torch.Tensor | None, g: torch.Tensor,
                              max_pos_emb: int = 512, scale: float | None = None):
     """Gradients ``(dq, dk, dv, dtable)`` of :func:`fused_shaw_attention`
-    for the output gradient ``g``, by K2.  ``out`` and ``lse`` are the
+    for the output gradient ``g``, by K2 (the instance
+    :func:`kernel_instance` picks).  ``out`` and ``lse`` are the
     forward's output and row log-sum-exp (K1 writes both); ``rel_table``
     is in q's dtype.  dq, dk, dv come back contiguous in q's dtype, dtable
     in the table's (summed in fp32 with atomics, so not bit-deterministic
     from run to run).  CPU tensors take the plain version, which needs
     neither ``out`` nor ``lse``."""
-    global bwd_launches
+    global bwd_launches, bwd_mma_launches
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -326,12 +359,20 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must match q, got {tuple(t.shape)} {t.dtype}")
     if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32:
         raise ValueError("lse must be the forward's [B, h, n] fp32 log-sum-exp")
+    tensor_core = kernel_instance(q.dtype, d) == "tensor_core"
     band_rows = min(_BM + n - 1, 2 * max_pos_emb + 1)
-    if band_rows * d * 4 + _STATIC_SMEM_BYTES > _SMEM_BYTES:
+    # the tensor-core entry point refuses a band that does not fit itself
+    if not tensor_core and band_rows * d * 4 + _STATIC_SMEM_BYTES > _SMEM_BYTES:
         raise ValueError(f"max_pos_emb {max_pos_emb} at head dim {d} exceeds "
                          f"the backward kernel's shared memory")
     table = rel_table.contiguous()
     out, g, lse = out.contiguous(), g.contiguous(), lse.contiguous()
+    if tensor_core:
+        _check_alignment(q, k, v, table)
+        for name, t in (("out", out), ("g", g)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned, which the bf16 "
+                                 f"tensor-core kernel needs")
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     dtable = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
@@ -339,15 +380,22 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk, dv, dtable.to(table.dtype)
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     groups = max(1, min(b, -(-_BWD_BLOCKS // (h * -(-n // _BM)))))
-    lib = build_bwd()
-    status = lib.se_shaw_attention_bwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(table), _ptr(out), _ptr(g), _ptr(lse),
-        _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dtable),
-        int(q.dtype == torch.bfloat16), b, n, h, d, q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), max_pos_emb,
-        float(scale), groups, band_rows, _native.current_stream(q.device))
-    _native.check(status, "se_shaw_attention_bwd")
-    bwd_launches += 1
+    pointers = (_ptr(q), _ptr(k), _ptr(v), _ptr(table), _ptr(out), _ptr(g), _ptr(lse),
+                _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dtable))
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+    stream = _native.current_stream(q.device)
+    if tensor_core:
+        status = build_bwd_mma().se_shaw_attention_bwd_mma(
+            *pointers, b, n, h, d, *strides, max_pos_emb, float(scale), groups, band_rows,
+            stream)
+        _native.check(status, "se_shaw_attention_bwd_mma")
+        bwd_mma_launches += 1
+    else:
+        status = build_bwd().se_shaw_attention_bwd(
+            *pointers, int(q.dtype == torch.bfloat16), b, n, h, d, *strides, max_pos_emb,
+            float(scale), groups, band_rows, stream)
+        _native.check(status, "se_shaw_attention_bwd")
+        bwd_launches += 1
     return dq, dk, dv, dtable.to(table.dtype)
 
 

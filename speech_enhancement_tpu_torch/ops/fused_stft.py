@@ -3,7 +3,10 @@
 Replace ``speech_enhancement_tpu/ops/pallas_stft.py`` (``pallas_stft`` /
 ``_stft_kernel`` and ``pallas_istft`` / ``_istft_kernel``).  The kernels
 live in ``csrc/stft.cu``, whose header says what bounds them on an H100
-and how they are laid out.  ``Enhancer(fused_stft=True)`` routes the
+and how they are laid out: K4 is a 3xTF32 tensor-core GEMM of each frame's
+even and odd parts against :func:`stft_basis`, which the wrapper builds
+once per (n_fft, device) in the order the kernel reads it
+(:func:`basis_fragment_order`).  ``Enhancer(fused_stft=True)`` routes the
 serving featurization through them.
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
@@ -17,12 +20,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from speech_enhancement_tpu_torch.ops import _native
 from speech_enhancement_tpu_torch.ops.stft import istft, stft
 
-__all__ = ["build", "fused_stft", "fused_istft", "stft_reference", "istft_reference"]
+__all__ = ["basis_fragment_order", "build", "fused_stft", "fused_istft", "istft_reference",
+           "stft_basis", "stft_reference"]
 
 # kernel launches of each wrapper since import (or since a caller reset it)
 stft_launches = 0
@@ -30,10 +35,11 @@ istft_launches = 0
 
 _COMP_TYPES = ("pow", "none")
 _MAX_R = 8  # csrc/stft.cu kMaxR
+_TILE_BINS = 104  # csrc/stft.cu kBins: bins per K4 block
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, out, batch, L, T, n_fft, hop, compress, stream
-    "se_stft": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, basis, out, batch, L, T, n_fft, hop, k_pad, n_tiles, compress, stream
+    "se_stft": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # spec, out, batch, T, n_fft, hop, out_len, compress, stream
     "se_istft": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -42,6 +48,49 @@ _SIGNATURES = {
 def build() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/stft.cu``."""
     return _native.load("stft", _SIGNATURES)
+
+
+def stft_basis(n_fft: int) -> torch.Tensor:
+    """K4's folded window-DFT basis, fp32 ``[2, k_pad, f_pad]``: part 0 is
+    ``c_k w[k] cos(2 pi k f / n_fft)``, part 1 is ``-c_k w[k] sin(...)``
+    for ``k <= n_fft / 2`` (w the periodic Hamming window, ``c_k = 1/2`` at
+    ``k = 0`` and ``n_fft / 2``, else 1), built in float64 and rounded
+    once; rows padded with zeros to ``k_pad``, a multiple of 8, and bins to
+    ``f_pad``, whole tiles of 104.  Applied to the even part ``x[k] + x[N
+    - k]`` and the odd part ``x[k] - x[N - k]`` of a frame (the partner of
+    ``k = 0`` is itself), it gives the real and imaginary DFT of the
+    windowed frame."""
+    nfreq = n_fft // 2 + 1
+    k_pad = -(-nfreq // 8) * 8
+    f_pad = -(-nfreq // _TILE_BINS) * _TILE_BINS
+    k = np.arange(nfreq)[:, None]
+    ang = 2.0 * np.pi * k * np.arange(nfreq)[None, :] / n_fft
+    window = 0.54 - 0.46 * np.cos(2.0 * np.pi * k / n_fft)
+    window[[0, -1]] *= 0.5
+    basis = np.zeros((2, k_pad, f_pad))
+    basis[0, :nfreq, :nfreq] = window * np.cos(ang)
+    basis[1, :nfreq, :nfreq] = -window * np.sin(ang)
+    return torch.from_numpy(basis.astype(np.float32))
+
+
+def basis_fragment_order(basis: torch.Tensor) -> torch.Tensor:
+    """``basis`` ``[2, k_pad, f_pad]`` in the order K4's B fragments read
+    it: ``[tiles, k_pad / 8, 2, 104, 4, 2]``, where ``[tile, s, part, c, t,
+    e]`` is row ``8 s + 4 e + t`` of bin ``104 tile + c`` of ``part``."""
+    _, k_pad, f_pad = basis.shape
+    tiles = basis.view(2, k_pad // 8, 2, 4, f_pad // _TILE_BINS, _TILE_BINS)
+    return tiles.permute(4, 1, 0, 5, 3, 2).contiguous()
+
+
+_device_bases: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _kernel_basis(n_fft: int, device: torch.device) -> torch.Tensor:
+    """:func:`stft_basis` in fragment order on ``device``, built once."""
+    key = (n_fft, device)
+    if key not in _device_bases:
+        _device_bases[key] = basis_fragment_order(stft_basis(n_fft)).to(device)
+    return _device_bases[key]
 
 
 def _gated_rescale(spec: torch.Tensor, exponent: float) -> torch.Tensor:
@@ -113,10 +162,12 @@ def fused_stft(x: torch.Tensor, n_fft: int = 400, hop: int = 100,
     if batch == 0:
         return out
     lib = build()
+    basis = _kernel_basis(n_fft, x.device)
+    n_tiles, k_steps = basis.shape[:2]
     status = lib.se_stft(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        batch, length, n_frames, n_fft, hop, int(comp_type == "pow"),
-        _native.current_stream(x.device))
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(basis.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), batch, length, n_frames, n_fft, hop,
+        8 * k_steps, n_tiles, int(comp_type == "pow"), _native.current_stream(x.device))
     _native.check(status, "se_stft")
     stft_launches += 1
     return out
