@@ -8,26 +8,31 @@ Run it from the root of a checkout on a machine with a CUDA card, nvcc
 line each (timings beside the card's name and power limit):
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. build the seven native sources of ``csrc/`` (six CUDA sources and the
+2. build the eight native sources of ``csrc/`` (seven CUDA sources and the
    PESQ engine), one compiler each, all started together (seconds);
-   ptxas's registers and spills of the tensor-core instances of K1 and K2
-   and of K4 (no spills allowed), and their resident warps per SM;
-3. K1 (both instances), K4 (at n_fft 400 / hop 100 and 300 / 75) and K5
-   against their plain PyTorch versions on the card, at the shapes of the
-   serving path, with the tolerance stated beside each; K1's row
-   log-sum-exp against the plain one;
+   ptxas's registers and spills of the tensor-core instances of K1 (bf16
+   and fp32) and K2 and of K4 and K5 (no spills allowed), and their
+   resident warps per SM;
+3. K1 (all three instances: bf16 and fp32 on tensor cores at d 16 and 32,
+   B'=3232 n=321 and n=1281 included, CUDA cores at d 4 and 8), K4 and K5
+   (each at n_fft 400 / hop 100 and 300 / 75) against their plain PyTorch
+   versions on the card, at the shapes of the serving path, with the
+   tolerance stated beside each; K1's row log-sum-exp against the plain
+   one;
 4. the serving path itself: ``Enhancer(fused_stft=True)`` on a full-width
    ``TSCNet(64, 201, fused_attention=True)`` (seeded random weights)
    enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32; the
    outputs must be finite, in order, cut to length, and agree with the
-   same weights run through the plain path; every kernel's launch count
-   over that run must be > 0;
+   same weights run through the plain path; the launch count of every
+   kernel of the path over that run must be > 0 (the CUDA-core K1 is on
+   no main path: it takes head dims 4 and 8 only);
 5. kernel path against plain path for ``enhance_batch`` on [32, 32000]
-   (per call), K1's device time per batch from ``torch.profiler``, and the
-   kernel rows of K1, K4 and K5: device time, per-call time, plain time,
-   bound and library time (K1 at n = 1281 against SDPA over 8 batch
-   chunks; K4 and K5 against their library calls in 5 alternating rounds,
-   medians and per-round ratios printed);
+   (per call, bf16 and fp32), K1's device time per batch from
+   ``torch.profiler`` (bf16 and fp32), and the kernel rows of K1 (each
+   instance), K4 and K5: device time, per-call time, plain time, bound and
+   library time (K1 at n = 1281 against SDPA over 8 batch chunks; K4 and
+   K5 against their library calls in 5 alternating rounds, medians and
+   per-round ratios printed);
 6. K2 (the Shaw-attention backward, through the autograd route whose
    forward is K1; both instances, B'=3232 n=321 bf16 included) and K6 (the
    axis swap, forward and backward) against their plain versions at
@@ -38,10 +43,10 @@ line each (timings beside the card's name and power limit):
    fused_attention=True)`` and ``Discriminator(16)``, arch scp, MSE,
    SGD-Nesterov lr 0.01 (discriminator 0.02), batches of 8 x 1 s
    tone-plus-noise; fp32 and bf16 steps, finite losses, a falling
-   generator loss on one repeated batch, both instances of K1 and K2
-   launched; one step of the kernel path against the plain path
-   (``fused_attention=False``), and one with ``fused_relayout=True`` (K6
-   launched);
+   generator loss on one repeated batch, the tensor-core instances of K1
+   (bf16 and fp32) and both of K2 launched; one step of the kernel path
+   against the plain path (``fused_attention=False``), and one with
+   ``fused_relayout=True`` (K6 launched);
 8. training timings (CUDA events, median after warm-up): generator step,
    host labels, discriminator step, whole step, kernel path against plain
    path, fp32 and bf16; the bf16 step's device time by kernel and its
@@ -57,7 +62,8 @@ its per-call time is CUDA events around one call, host included (median).
 A row says whether its working set fits the 50 MB L2 (then the repeated
 calls find their inputs there).  Bounds are the larger of the operations
 over the card's peak rate for their type and the bytes (each input read
-once, each output written once) over 3.35 TB/s.  ``library_ms`` is one
+once, each output written once) over 3.35 TB/s; a 3xTF32 kernel's fp32
+products count three TF32 products each.  ``library_ms`` is one
 PyTorch call computing the same function, timed here and used nowhere in
 the port.
 
@@ -124,8 +130,12 @@ def time_pair(kernel_fn, plain_fn, warmup: int = 2, reps: int = 10):
     return statistics.median(times[kernel_fn]), statistics.median(times[plain_fn])
 
 
-# peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W)
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W): bf16 on
+# tensor cores, fp32 on CUDA cores; TF32 495 TFLOP/s on tensor cores (the
+# same data sheet's dense TF32 rate), which a 3xTF32 kernel spends three
+# times per fp32-accurate product
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 L2_BYTES = 50e6
 
@@ -163,9 +173,12 @@ def device_ms(fn, min_ms: float = 2.0, min_n: int = 20, max_n: int = 400) -> flo
         n = min(max_n, math.ceil(n * 1.2 * min_ms / max(total, 1e-3)))
 
 
-def bound(flops: float, nbytes: float, dtype=torch.bfloat16) -> tuple[float, str]:
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+def bound(flops: float, nbytes: float, dtype=torch.bfloat16,
+          tf32x3: bool = False) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes"); with
+    ``tf32x3`` the fp32 products run as three TF32 products each on tensor
+    cores (3 x flops at ``PEAK_TF32``)."""
+    t_ops = (3 * flops / PEAK_TF32 if tf32x3 else flops / PEAK_FLOPS[dtype]) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
@@ -198,11 +211,11 @@ def row(name: str, dev: float, call: float, plain: float, bnd: tuple, nbytes: fl
             "dtype": {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]}
 
 
-def attention_bound(b, n, dtype, h=4, d=16):
+def attention_bound(b, n, dtype, h=4, d=16, tf32x3=False):
     """K1: three n x n x d contractions per (sequence, head); q, k, v, out."""
     elem = torch.finfo(dtype).bits // 8
     nbytes = 4 * b * n * h * d * elem
-    return bound(6.0 * b * h * n * n * d, nbytes, dtype), nbytes
+    return bound(6.0 * b * h * n * n * d, nbytes, dtype, tf32x3), nbytes
 
 
 def sdpa_yardstick(q, k, v, table, max_pos=512):
@@ -244,6 +257,25 @@ def chunked(fn, chunk, *args):
     b = args[0].shape[0]
     return torch.cat([fn(*(a[i:i + chunk] for a in args[:3]), *args[3:])
                       for i in range(0, b, chunk)])
+
+
+def attention_reference(q, k, v, table, max_pos, chunk=404):
+    """``shaw_attention_reference`` and the row log-sum-exp of its scaled
+    fp32 logits (what K2 reads), over batch chunks: the logits of B'=3232
+    n=321 take 5.3 GB a tensor."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    d = q.shape[-1]
+    rel = table[fa.relative_index(q.shape[1], max_pos, q.device)].float()
+    outs, lses = [], []
+    for i in range(0, q.shape[0], chunk):
+        qc, kc, vc = (t[i:i + chunk] for t in (q, k, v))
+        outs.append(fa.shaw_attention_reference(qc, kc, vc, table, max_pos))
+        logits = (torch.einsum("bihd,bjhd->bhij", qc.float(), kc.float())
+                  + torch.einsum("bihd,ijd->bhij", qc.float(), rel)) * d ** -0.5
+        lses.append(torch.logsumexp(logits, -1))
+        del logits
+    return torch.cat(outs), torch.cat(lses)
 
 
 def ptxas_report(log: str) -> dict[str, list[str]]:
@@ -366,7 +398,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
             del leaves, out
             want = bwd_reference(q, k, v, table, g, max_pos)
             torch.cuda.synchronize()
-            instance = fa.kernel_instance(dtype, d)
+            instance = fa.kernel_instance(dtype, d, "backward")
             key = "K2mma" if instance == "tensor_core" else "K2"
             report = []
             ok = all(a.dtype == dtype and a.shape == w.shape for a, w in zip(got, want))
@@ -417,35 +449,47 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                                               compute_dtype=None if dtype == torch.float32
                                               else dtype) for dtype in both}
     states = {dtype: new_state() for dtype in both}
-    fa.launches = fa.mma_launches = fa.bwd_launches = fa.bwd_mma_launches = fr.launches = 0
+    # each step's generator gradient norm by leaf, so that a loss that
+    # does not fall shows which step and leaf took the large update
+    seen = {dtype: read_grads(states[dtype].gen_opt, states[dtype].gen) for dtype in both}
+    leaf_norms = {dtype: [] for dtype in both}
+    fa.launches = fa.mma_launches = fa.tf32_launches = fa.bwd_launches = fa.bwd_mma_launches = 0
+    fr.launches = 0
     t0 = time.perf_counter()
     history = {dtype: [] for dtype in both}
     for dtype in both:
-        clean, noisy = batches[0]
-        for i in range(3):  # one repeated batch
+        for i, (clean, noisy) in enumerate((batches[0],) * 3 + (batches[1],)):
+            # steps 0-2 on one repeated batch
             history[dtype].append(steps[dtype](states[dtype], clean, noisy, i))
-        clean, noisy = batches[1]
-        history[dtype].append(steps[dtype](states[dtype], clean, noisy, 3))
+            leaf_norms[dtype].append({n: g.double().norm() for n, g in seen[dtype].items()})
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"K1 tensor-core": fa.mma_launches, "K1 CUDA-core": fa.launches,
+    launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
                 "K2 tensor-core": fa.bwd_mma_launches, "K2 CUDA-core": fa.bwd_launches}
+    cuda_core_fwd_launches = fa.launches
     print(f"[7 training path] make_fused_gan_train_step, TSCNet(64, 201, fused_attention=True) "
           f"+ Discriminator(16), scp, batch 8 x 16000, 4 steps each fp32 and bf16 in "
-          f"{train_s:.2f} s (first calls included); launches {launches}", flush=True)
+          f"{train_s:.2f} s (first calls included); launches {launches}; CUDA-core K1 "
+          f"{cuda_core_fwd_launches} (no training path has d 4 or 8)", flush=True)
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times by the training path")
     for dtype in both:
         values = [{k: float(v) for k, v in m.items()} for m in history[dtype]]
         check(all(np.isfinite(x) for m in values for x in m.values()),
               f"{dtype} training: every loss finite")
+        for i, norms in enumerate(leaf_norms[dtype]):
+            norms = {n: float(x) for n, x in norms.items()}
+            top = max(norms, key=norms.get)
+            print(f"    info {dtype} step {i}: generator loss {values[i]['loss']:.5f}, gradient "
+                  f"norm {math.sqrt(sum(x * x for x in norms.values())):.4g} (largest leaf "
+                  f"{top} {norms[top]:.3g})", flush=True)
         gen_losses = [m["loss"] for m in values[:3]]
         check(gen_losses[-1] < gen_losses[0],
               f"{dtype} generator loss on one repeated batch falls: "
               f"{', '.join(f'{x:.5f}' for x in gen_losses)}")
         print(f"    info {dtype} last step: "
               + ", ".join(f"{k} {v:.5f}" for k, v in values[-1].items()), flush=True)
-    del states
+    del states, seen, leaf_norms
 
     # one fp32 step from the same weights, batch and seed: kernel path, and
     # kernel path with the K6 fold, against the plain path
@@ -570,7 +614,8 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         # bias term, dK, dtable); q, k, v, out, g, lse in, dq, dk, dv out
         elem = torch.finfo(dtype).bits // 8
         nbytes = 8 * q.numel() * elem + lse.numel() * 4 + table.numel() * elem
-        bnd = bound(16.0 * b * 4 * n * n * 16, nbytes, dtype)
+        flops = 16.0 * b * 4 * n * n * 16
+        bnd = bound(flops, nbytes, dtype)
         dev = device_ms(kernel)
         # the yardstick's backward: autograd through the Shaw-bias build and
         # scaled_dot_product_attention (K1's library call)
@@ -582,11 +627,17 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2)
         lib = library(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
         del leaves, qt, kt, vt, bias, y
-        instance = fa.kernel_instance(dtype, 16)
+        instance = fa.kernel_instance(dtype, 16, "backward")
+        # fp32 on CUDA cores: beside its 67 TFLOP/s bound, the 3xTF32 one a
+        # tensor-core instance would be held to
+        tf32_bnd = bound(flops, nbytes, dtype, tf32x3=True) if dtype == torch.float32 else None
         r = row(f"K2 {instance.replace('_', '-')} B'={b} n={n} {dtype}", dev, call, plain, bnd,
-                nbytes, lib, card, "; library: autograd backward of the bias build and SDPA",
+                nbytes, lib, card, "; library: autograd backward of the bias build and SDPA"
+                + ("" if tf32_bnd is None else f"; 3xTF32 bound {tf32_bnd[0]:.4f} ms "
+                   f"({tf32_bnd[1]}; {100 * tf32_bnd[0] / dev:.1f}%)"),
                 shape=f"B'={b} n={n} h=4 d=16", dtype=dtype)
         if instance == "cuda_core":
+            r["bound_3xtf32_ms"] = tf32_bnd[0]
             rows["K2"] = r
         elif n == 161:
             rows["K2mma"] = r
@@ -639,7 +690,8 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
               f"{base / 2**30:.3f} GiB held before it) ({card})", flush=True)
         del state
         torch.cuda.empty_cache()
-    return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "rows": rows}
+    return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "rows": rows,
+            "cuda_core_fwd_launches": cuda_core_fwd_launches}
 
 
 def main() -> int:
@@ -670,8 +722,8 @@ def main() -> int:
 
     # 2. build: one compiler per source, all at once
     t0 = time.perf_counter()
-    builds = (fs.build, fa.build, fa.build_mma, fa.build_bwd, fa.build_bwd_mma, fr.build,
-              pesq.build)
+    builds = (fs.build, fa.build, fa.build_mma, fa.build_tf32, fa.build_bwd, fa.build_bwd_mma,
+              fr.build, pesq.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for build in [pool.submit(b) for b in builds]:
             build.result()
@@ -681,10 +733,13 @@ def main() -> int:
     for library, kernels, what in (
             ("shaw_attention_mma", ["shaw_attention_mma_kernelILi16", "shaw_attention_mma_kernelILi32"],
              "K1 tensor-core instance"),
+            ("shaw_attention_tf32", ["shaw_attention_tf32_kernelILi16",
+                                     "shaw_attention_tf32_kernelILi32"],
+             "K1 fp32 tensor-core instance"),
             ("shaw_attention_bwd_mma", ["bwd_query_mma_kernelILi16", "bwd_key_mma_kernelILi16",
                                         "bwd_query_mma_kernelILi32", "bwd_key_mma_kernelILi32"],
              "K2 tensor-core instance"),
-            ("stft", ["11stft_kernel"], "K4")):  # the mangled name's length tells it from istft
+            ("stft", ["11stft_kernel", "12istft_kernel"], "K4 and K5")):  # mangled lengths
         report = ptxas_report(_native.build_logs.get(library, ""))
         for name, lines in sorted(report.items()):
             short = next((k.lstrip("0123456789") for k in kernels if k in name), name)
@@ -698,6 +753,14 @@ def main() -> int:
         warps = 4 * fa.mma_occupancy(d)
         check(warps >= 8, f"K1 tensor-core instance d={d}: {warps} resident warps per SM "
                           f"(at least 8)")
+        warps = 4 * fa.tf32_occupancy(d)
+        check(warps >= 8, f"K1 fp32 tensor-core instance d={d}: {warps} resident warps per SM "
+                          f"(at least 8)")
+    for n_fft, hop in ((400, 100), (300, 75)):
+        frames, smem, blocks = fs.istft_occupancy(n_fft, hop)
+        warps = blocks * frames // 8  # two warps per 16 frames
+        check(warps >= 8, f"K5 n_fft {n_fft} hop {hop}: {frames} frames per block, {smem} bytes "
+                          f"of shared memory, {warps} resident warps per SM (at least 8)")
     for d in (16, 32):
         for n in (161, 321, 1281):
             blocks_a, blocks_b = fa.bwd_mma_occupancy(d, n)
@@ -710,45 +773,47 @@ def main() -> int:
 
     # 3. kernels against their plain versions, main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"K1": 0.0, "K1mma": 0.0, "K4": 0.0, "K5": 0.0}
+    errs = {"K1": 0.0, "K1mma": 0.0, "K1tf32": 0.0, "K4": 0.0, "K5": 0.0}
     print("[3 kernels vs plain] tolerance |kernel - plain| <= atol + rtol |plain|", flush=True)
     # K1: fp32 differs in summation order only (rtol 1e-4, atol 1e-5, as
     # tests/test_pallas_attention.py); bf16 may flip a rounding of P or of
     # the output, one bf16 step of order-1 values (rtol 2e-2, atol 2e-2)
     tols = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
-    # main-path shapes (2 s and 8 s at batch 32 have B' = 3232; these are
-    # slices of them), then short, full-tile and clipped edge cases
-    # (max_pos_emb 8) and the other head dims; bf16 at d 16 and 32 takes
-    # the tensor-core instance, the rest the CUDA-core one
-    both = (torch.float32, torch.bfloat16)
-    for b, n, max_pos, d, dtypes in ((404, 321, 512, 16, both), (8, 1281, 512, 16, both),
-                                     (5, 7, 512, 16, both), (3, 100, 8, 16, both),
-                                     (2, 64, 512, 16, both), (8, 1281, 8, 16, both),
-                                     (6, 321, 512, 32, both), (4, 1281, 512, 32, both),
-                                     (5, 7, 512, 32, both), (3, 100, 8, 32, both),
-                                     (6, 70, 512, 4, both), (6, 70, 512, 8, both)):
+    # main-path shapes (2 s at batch 32 is B' = 3232 n = 321, whole; 8 s a
+    # slice of B' = 3232 n = 1281, clipping on), then short, full-tile and
+    # clipped edge cases (max_pos_emb 8) and the other head dims; d 16 and
+    # 32 take the tensor-core instances (bf16 and fp32 in 3xTF32), d 4 and
+    # 8 the CUDA-core one (B' = 3232 n = 321 d = 8 fp32: its timed shape)
+    both, fp32 = (torch.float32, torch.bfloat16), (torch.float32,)
+    cuda_core_launches = fa.launches
+    for b, n, max_pos, d, dtypes in ((3232, 321, 512, 16, both), (3232, 321, 512, 32, fp32),
+                                     (8, 1281, 512, 16, both), (5, 7, 512, 16, both),
+                                     (3, 100, 8, 16, both), (2, 64, 512, 16, both),
+                                     (8, 1281, 8, 16, both), (6, 321, 512, 32, both),
+                                     (4, 1281, 512, 32, both), (5, 7, 512, 32, both),
+                                     (3, 100, 8, 32, both), (6, 70, 512, 4, both),
+                                     (6, 70, 512, 8, both), (3232, 321, 512, 8, fp32)):
         for dtype in dtypes:
             q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
             instance = fa.kernel_instance(dtype, d)
             got, lse = fa.fused_shaw_attention_fwd(q, k, v, table, max_pos, d ** -0.5,
                                                    with_lse=True)
-            want = fa.shaw_attention_reference(q, k, v, table, max_pos)
             # the row log-sum-exp K2 reads: fp32 sums of the same logits in
             # another order (atol 1e-4 on values of order 10)
-            rel = table[fa.relative_index(n, max_pos, q.device)].float()
-            logits = (torch.einsum("bihd,bjhd->bhij", q.float(), k.float())
-                      + torch.einsum("bihd,ijd->bhij", q.float(), rel)) * d ** -0.5
-            lse_err = float((lse - torch.logsumexp(logits, -1)).abs().max())
+            want, lse_want = attention_reference(q, k, v, table, max_pos)
+            lse_err = float((lse - lse_want).abs().max())
             torch.cuda.synchronize()
             err, ok = within(got, want, *tols[dtype])
-            key = "K1mma" if instance == "tensor_core" else "K1"
+            key = {"tensor_core": "K1mma", "tensor_core_tf32": "K1tf32",
+                   "cuda_core": "K1"}[instance]
             errs[key] = max(errs[key], err)
             check(ok and lse_err < 1e-4 and got.dtype == dtype and got.shape == want.shape,
                   f"K1 ({instance}) B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: "
                   f"max abs err {err:.3e} (rtol {tols[dtype][0]}, atol {tols[dtype][1]}); "
                   f"lse max abs err {lse_err:.2e} (atol 1e-4)")
-            del q, k, v, table, got, lse, want, rel, logits
+            del q, k, v, table, got, lse, want, lse_want
         torch.cuda.empty_cache()
+    cuda_core_launches = fa.launches - cuda_core_launches
     # K4: 3xTF32 sums (about fp32) in another order; compression amplifies
     # the error of near-empty bins (rtol 1e-4, atol 2e-4, as
     # tests/test_pallas_stft.py); the main path's geometry, then n_fft 300,
@@ -764,19 +829,23 @@ def main() -> int:
                                                       n_fft // 2 + 1),
               f"K4 stft+compress {list(shape)} n_fft {n_fft} hop {hop} fp32: max abs err "
               f"{err:.3e} (rtol 1e-4, atol 2e-4)")
-    x = torch.randn(32, 32000, device="cuda", generator=gen)
-    spec_ref = fs.stft_reference(x)
-    # K5: fp32 sums of 201 products of order-1 values in another order;
-    # 31963 leaves a ragged last block
-    for length in (32000, 31963):
-        wav = fs.fused_istft(spec_ref, length=length)
-        wav_ref = fs.istft_reference(spec_ref, length=length)
-        torch.cuda.synchronize()
-        err, ok = within(wav, wav_ref, 1e-4, 1e-4)
-        errs["K5"] = max(errs["K5"], err)
-        check(ok and wav.shape == wav_ref.shape == (32, length),
-              f"K5 uncompress+istft [32, 321, 201] length {length} fp32: max abs err "
-              f"{err:.3e} (rtol 1e-4, atol 1e-4)")
+    # K5: 3xTF32 sums (about fp32) of 201 products of order-1 values in
+    # another order; the main path's geometry, then n_fft 300, hop 75 (K
+    # padded 151 -> 152, 151 of 208 n columns); 31963 and 23911 cut inside
+    # a hop block
+    for shape, n_fft, hop, lengths in (((32, 32000), 400, 100, (32000, 31963)),
+                                       ((8, 24037), 300, 75, (24000, 23911))):
+        x = torch.randn(*shape, device="cuda", generator=gen)
+        spec_ref = fs.stft_reference(x, n_fft, hop)
+        for length in lengths:
+            wav = fs.fused_istft(spec_ref, n_fft, hop, length=length)
+            wav_ref = fs.istft_reference(spec_ref, n_fft, hop, length=length)
+            torch.cuda.synchronize()
+            err, ok = within(wav, wav_ref, 1e-4, 1e-4)
+            errs["K5"] = max(errs["K5"], err)
+            check(ok and wav.shape == wav_ref.shape == (shape[0], length),
+                  f"K5 uncompress+istft {list(spec_ref.shape)} n_fft {n_fft} hop {hop} length "
+                  f"{length} fp32: max abs err {err:.3e} (rtol 1e-4, atol 1e-4)")
     del x, spec, spec_ref, wav, wav_ref
     torch.cuda.empty_cache()
 
@@ -793,17 +862,19 @@ def main() -> int:
     plain_bf16 = Enhancer(plain_model, compute_dtype=torch.bfloat16, device="cuda")
     plain_fp32 = Enhancer(plain_model, device="cuda")
 
-    fa.launches = fa.mma_launches = fs.stft_launches = fs.istft_launches = 0
+    fa.launches = fa.mma_launches = fa.tf32_launches = fs.stft_launches = fs.istft_launches = 0
     t0 = time.perf_counter()
     out = {"kernel bf16": kernel_bf16.enhance(utts, batch_size=8),
            "kernel fp32": kernel_fp32.enhance(utts, batch_size=8)}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"K1 tensor-core": fa.mma_launches, "K1 CUDA-core": fa.launches,
+    launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
                 "K4": fs.stft_launches, "K5": fs.istft_launches}
+    main_cuda_core = fa.launches
     print(f"[4 main path] 12 utterances {min(lengths)}-{max(lengths)} samples, batch 8, "
           f"bf16 + fp32 kernel path in {main_s:.2f} s (first calls included); "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; CUDA-core K1 {fa.launches} (no main path has d 4 or 8)",
+          flush=True)
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times by the main path")
     out["plain bf16"] = plain_bf16.enhance(utts, batch_size=8)
@@ -838,18 +909,19 @@ def main() -> int:
     print(f"    enhance_batch [32, 32000] fp32: kernel path {kernel_ms32:.3f} ms, plain path "
           f"{plain_ms32:.3f} ms ({card})", flush=True)
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        kernel_bf16.enhance_batch(batch)
-    kernel_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_ms = sum(us for _, us in kernel_us) / 1e3
-    k1_ms = sum(us for key, us in kernel_us if "shaw_attention" in key) / 1e3
-    print(f"    torch.profiler, one enhance_batch [32, 32000] bf16, kernel path: "
-          f"{total_ms:.3f} ms of device kernel time, K1 {k1_ms:.3f} ms "
-          f"({100 * k1_ms / total_ms:.1f}%) ({card})", flush=True)
-    busiest = sorted(kernel_us, key=lambda e: -e[1])[:6]
-    print("    info busiest kernels: " + "; ".join(f"{us / 1e3:.3f} ms {key[:60]}"
-                                               for key, us in busiest), flush=True)
+    for label, enhancer in (("bf16", kernel_bf16), ("fp32", kernel_fp32)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            enhancer.enhance_batch(batch)
+        kernel_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        total_ms = sum(us for _, us in kernel_us) / 1e3
+        k1_ms = sum(us for key, us in kernel_us if "shaw_attention" in key) / 1e3
+        print(f"    torch.profiler, one enhance_batch [32, 32000] {label}, kernel path: "
+              f"{total_ms:.3f} ms of device kernel time, K1 {k1_ms:.3f} ms "
+              f"({100 * k1_ms / total_ms:.1f}%) ({card})", flush=True)
+        busiest = sorted(kernel_us, key=lambda e: -e[1])[:6]
+        print("    info busiest kernels: " + "; ".join(f"{us / 1e3:.3f} ms {key[:60]}"
+                                                   for key, us in busiest), flush=True)
     del kernel_bf16, kernel_fp32, plain_bf16, plain_fp32, prof
     torch.cuda.empty_cache()
 
@@ -895,16 +967,27 @@ def main() -> int:
           f" ms; the eager bf16 attention there {eager:.4f} ms ({card})", flush=True)
     del q, k, v, table
     torch.cuda.empty_cache()
-    q, k, v, table = attention_operands(3232, 321, torch.float32, gen)
-    call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                            lambda: fa.shaw_attention_reference(q, k, v, table))
-    bnd, nbytes = attention_bound(3232, 321, torch.float32)
-    rows["K1"] = row("K1 CUDA-core B'=3232 n=321 fp32",
-                     device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call, plain,
-                     bnd, nbytes, sdpa_yardstick(q, k, v, table)[0], card,
-                     shape="B'=3232 n=321 h=4 d=16", dtype=torch.float32)
-    del q, k, v, table
-    torch.cuda.empty_cache()
+    # fp32: the 3xTF32 tensor-core instance at the serving shape, held to
+    # three TF32 products per fp32 product (beside it the 67 TFLOP/s fp32
+    # bound), and the CUDA-core instance at d = 8, the head dim it keeps
+    for d, key, label in ((16, "K1tf32", "K1 fp32 tensor-core (3xTF32)"),
+                          (8, "K1", "K1 CUDA-core")):
+        q, k, v, table = attention_operands(3232, 321, torch.float32, gen, d=d)
+        call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
+                                lambda: fa.shaw_attention_reference(q, k, v, table))
+        fp32_bnd, nbytes = attention_bound(3232, 321, torch.float32, d=d)
+        tf32_bnd, _ = attention_bound(3232, 321, torch.float32, d=d, tf32x3=True)
+        bnd, other, other_name = ((tf32_bnd, fp32_bnd, "67 TFLOP/s fp32") if key == "K1tf32"
+                                  else (fp32_bnd, tf32_bnd, "3xTF32"))
+        dev = device_ms(lambda: fa.fused_shaw_attention(q, k, v, table))
+        rows[key] = row(f"{label} B'=3232 n=321 d={d} fp32", dev, call, plain, bnd, nbytes,
+                        sdpa_yardstick(q, k, v, table)[0], card,
+                        f"; {other_name} bound {other[0]:.4f} ms ({other[1]}; "
+                        f"{100 * other[0] / dev:.1f}%)",
+                        shape=f"B'=3232 n=321 h=4 d={d}", dtype=torch.float32)
+        rows[key]["bound_3xtf32_ms" if key == "K1" else "bound_fp32_cuda_core_ms"] = other[0]
+        del q, k, v, table
+        torch.cuda.empty_cache()
 
     x = torch.randn(32, 32000, device="cuda", generator=gen)
     spec = fs.stft_reference(x)
@@ -962,10 +1045,17 @@ def main() -> int:
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
          "launches": launches["K1 tensor-core"] + tl["K1 tensor-core"],
          "max_abs_err": errs["K1mma"], **rows["K1mma"]},
+        {"name": "shaw_attention_fwd_tf32", "route": "cuda",
+         "source": f"{pkg}/csrc/shaw_attention_tf32.cu",
+         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
+         "launches": launches["K1 fp32 tensor-core"] + tl["K1 fp32 tensor-core"],
+         "max_abs_err": errs["K1tf32"], **rows["K1tf32"]},
         {"name": "shaw_attention_fwd_cuda_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         "launches": launches["K1 CUDA-core"] + tl["K1 CUDA-core"],
+         "launches": main_cuda_core + train["cuda_core_fwd_launches"],
+         "check_launches": cuda_core_launches,
+         "check_launches_from": "phase-3 checks at head dims 4 and 8: no main path reaches it",
          "max_abs_err": errs["K1"], **rows["K1"]},
         {"name": "shaw_attention_bwd_tensor_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd_mma.cu",

@@ -1,5 +1,6 @@
-// Shared-memory copies, ldmatrix and bf16 mma.sync wrappers for the
-// tensor-core kernels of this directory (sm_80 and later; built for sm_90a).
+// Shared-memory copies, ldmatrix, and the bf16 and TF32 mma.sync wrappers
+// for the tensor-core kernels of this directory (sm_80 and later; built for
+// sm_90a).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +55,49 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (round to nearest, ties away), as the b32 an mma takes:
+// half a step of the 13 dropped mantissa bits added to the magnitude, then
+// cleared.  For finite x that is what cvt.rna.tf32.f32 gives, in two integer
+// instructions, which the 3xTF32 kernels here run faster than the cvt on an
+// H100 with the same outputs bit for bit (probes/kernel_variants.py,
+// variant cvt).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 2^-22 relative, both TF32: the operands of a 3xTF32
+// product lo*hi + hi*lo + hi*hi, which keeps about fp32's accuracy
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += A B for one m16n8k8 tile: TF32 operands, fp32 accumulator.  The
+// tensor core truncates its fp32 sums, so a 3xTF32 kernel sums each
+// k-step's three products into a fresh fragment and adds that to its
+// running sum with an fp32 add (round to nearest).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B for one k-step in 3xTF32: lo*hi + hi*lo + hi*hi of the split
+// operands (A: ah + al; B: bh0/bh1 + bl0/bl1) into a fresh fragment, then
+// added to c in fp32
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, al, bh0, bh1);
+  mma_tf32(p, ah, bl0, bl1);
+  mma_tf32(p, ah, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += p[e];
 }
 
 // two fp32 values as a bf16 pair, lo in the low half (the lower column)

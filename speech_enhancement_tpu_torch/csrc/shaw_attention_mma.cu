@@ -9,9 +9,10 @@
 //
 // with the TPU kernel's numerics: bf16 operands, fp32 logits and softmax,
 // P rounded to bf16 before P.V, fp32 accumulation.  Those map onto
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) exactly.  fp32 operands and
-// bf16 at d = 4 or 8 stay on the CUDA-core kernel (shaw_attention.cu); the
-// wrapper (ops/fused_attention.py, kernel_instance) picks the instance.
+// mma.sync.m16n8k16 (bf16 in, fp32 accumulate) exactly.  fp32 operands at
+// d = 16 or 32 take the 3xTF32 instance (shaw_attention_tf32.cu), d = 4 or 8
+// of either dtype the CUDA-core kernel (shaw_attention.cu); the wrapper
+// (ops/fused_attention.py, kernel_instance) picks the instance.
 //
 // What bounds it on an H100: at the serving shape (B = 3232 sequences,
 // n = 321, h = 4, d = 16) the three n x n x d contractions are 128 GFLOP

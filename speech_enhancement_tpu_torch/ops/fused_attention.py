@@ -4,12 +4,13 @@ backward (K2, with K3 folded in).
 Replaces ``speech_enhancement_tpu/ops/pallas_attention.py``: the forward
 ``_attn_kernel`` (via ``_kernel_call``) and the backward
 ``_attn_bwd_kernel`` / ``_attn_bwd_drel_kernel`` (via ``_bwd_kernel_call``).
-K1 has two instances: bf16 at head dims 16 and 32 runs on tensor cores
-(``csrc/shaw_attention_mma.cu``), fp32 and bf16 at head dims 4 and 8 on
-CUDA cores (``csrc/shaw_attention.cu``); :func:`kernel_instance` picks one
-from (dtype, head dim).  K2 has the same two instances and the same
-dispatch: ``csrc/shaw_attention_bwd_mma.cu`` (bf16 at head dims 16 and 32,
-tensor cores) and ``csrc/shaw_attention_bwd.cu`` (the rest).  Each
+K1 has three instances: bf16 at head dims 16 and 32 runs on tensor cores
+(``csrc/shaw_attention_mma.cu``), fp32 at head dims 16 and 32 on tensor
+cores in 3xTF32 (``csrc/shaw_attention_tf32.cu``), and both dtypes at head
+dims 4 and 8 on CUDA cores (``csrc/shaw_attention.cu``).  K2 has two:
+``csrc/shaw_attention_bwd_mma.cu`` (bf16 at head dims 16 and 32, tensor
+cores) and ``csrc/shaw_attention_bwd.cu`` (the rest).
+:func:`kernel_instance` picks one from (dtype, head dim, direction).  Each
 source's header says what bounds it on an H100 and how it is laid out.
 ``ShawAttention(fused=True)`` (the time conformer of
 ``TSCNet(fused_attention=True)``) calls :func:`fused_shaw_attention`,
@@ -35,6 +36,7 @@ __all__ = [
     "build_bwd",
     "build_bwd_mma",
     "build_mma",
+    "build_tf32",
     "bwd_mma_occupancy",
     "fused_shaw_attention",
     "fused_shaw_attention_bwd",
@@ -44,22 +46,30 @@ __all__ = [
     "shaw_attention_bwd_reference",
     "shaw_attention_reference",
     "shaw_bias_skewed",
+    "tf32_occupancy",
 ]
 
 # kernel launches since import (or since a caller reset them): K1's CUDA-core
-# instance, K1's tensor-core instance, K2's CUDA-core and tensor-core instances
+# instance, K1's bf16 and fp32 tensor-core instances, K2's CUDA-core and
+# tensor-core instances
 launches = 0
 mma_launches = 0
+tf32_launches = 0
 bwd_launches = 0
 bwd_mma_launches = 0
 
 _HEAD_DIMS = (4, 8, 16, 32)  # the head dims K1 and K2 are built for
 _DTYPES = (torch.float32, torch.bfloat16)
-# (dtype, head dim) of the tensor-core instances, csrc/shaw_attention_mma.cu
-# and csrc/shaw_attention_bwd_mma.cu
-_TENSOR_CORE = {(torch.bfloat16, 16), (torch.bfloat16, 32)}
-# its tiling (kWarps * 16 query rows per block, kBN keys per tile, kWarpBand
-# band rows per warp, R' pitch kRP), mirrored by shaw_bias_skewed
+# the instance of each (dtype, head dim >= 16, direction); the rest
+# (head dims 4 and 8, and the fp32 backward) run on CUDA cores
+_TENSOR_CORE = {
+    (torch.bfloat16, "forward"): "tensor_core",    # csrc/shaw_attention_mma.cu
+    (torch.float32, "forward"): "tensor_core_tf32",  # csrc/shaw_attention_tf32.cu
+    (torch.bfloat16, "backward"): "tensor_core",   # csrc/shaw_attention_bwd_mma.cu
+}
+# the tensor-core instances' tiling (kWarps * 16 query rows per block, kBN
+# keys per tile, kWarpBand band rows per warp, R' pitch kRP), mirrored by
+# shaw_bias_skewed
 _MMA_BM, _MMA_BN, _MMA_WARP_ROWS, _MMA_WARP_BAND, _MMA_RP = 64, 64, 16, 80, 20
 _LOG2E = 1.4426950408889634
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -76,6 +86,12 @@ _SIGNATURES_MMA = {
     "se_shaw_attention_mma": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
     # d, *blocks
     "se_shaw_attention_mma_occupancy": [_I, ctypes.POINTER(ctypes.c_int)],
+}
+_SIGNATURES_TF32 = {
+    # as se_shaw_attention_mma, fp32 operands
+    "se_shaw_attention_tf32": [_P] * 6 + [_I] * 4 + [_L] * 6 + [_I, _F, _P],
+    # d, *blocks
+    "se_shaw_attention_tf32_occupancy": [_I, ctypes.POINTER(ctypes.c_int)],
 }
 _SIGNATURES_BWD = {
     # q, k, v, table, out, g, lse, delta, dq, dk, dv, dtable, is_bf16, batch,
@@ -110,24 +126,41 @@ def build_mma() -> ctypes.CDLL:
     return _native.load("shaw_attention_mma", _SIGNATURES_MMA)
 
 
+def build_tf32() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/shaw_attention_tf32.cu`` (K1,
+    the fp32 tensor-core instance)."""
+    return _native.load("shaw_attention_tf32", _SIGNATURES_TF32)
+
+
 def mma_occupancy(d: int) -> int:
-    """Resident blocks (of 4 warps) per SM of the tensor-core instance at
-    head dim ``d``, as the CUDA runtime computes it for the built kernel."""
+    """Resident blocks (of 4 warps) per SM of the bf16 tensor-core instance
+    at head dim ``d``, as the CUDA runtime computes it for the built kernel."""
     blocks = ctypes.c_int(0)
     _native.check(build_mma().se_shaw_attention_mma_occupancy(d, ctypes.byref(blocks)),
                   "se_shaw_attention_mma_occupancy")
     return blocks.value
 
 
-def kernel_instance(dtype: torch.dtype, d: int) -> str:
-    """Which instance of K1, and of K2, takes operands of ``dtype`` at head
-    dim ``d``: ``"tensor_core"`` (bf16, d 16 or 32: mma.sync, fp32
-    accumulate) or ``"cuda_core"`` (fp32, whose rtol 1e-4 bound TF32 would
-    break, and bf16 at d 4 or 8, below one mma k-step).  Dispatch, not a
+def tf32_occupancy(d: int) -> int:
+    """Resident blocks (of 4 warps) per SM of the fp32 tensor-core instance
+    at head dim ``d``, as the CUDA runtime computes it for the built kernel."""
+    blocks = ctypes.c_int(0)
+    _native.check(build_tf32().se_shaw_attention_tf32_occupancy(d, ctypes.byref(blocks)),
+                  "se_shaw_attention_tf32_occupancy")
+    return blocks.value
+
+
+def kernel_instance(dtype: torch.dtype, d: int, direction: str = "forward") -> str:
+    """Which instance of K1 (``direction="forward"``) or K2
+    (``"backward"``) takes operands of ``dtype`` at head dim ``d``:
+    ``"tensor_core"`` (bf16 at d 16 or 32, either direction: bf16 mma.sync,
+    fp32 accumulate), ``"tensor_core_tf32"`` (the fp32 forward at d 16 or
+    32: 3xTF32 mma.sync, about fp32's accuracy) or ``"cuda_core"`` (d 4 or
+    8, below one mma k-step, and the fp32 backward).  Dispatch, not a
     fallback: a failed build or launch of the chosen instance raises."""
-    if dtype not in _DTYPES or d not in _HEAD_DIMS:
-        raise ValueError(f"no K1 or K2 instance for {dtype} at head dim {d}")
-    return "tensor_core" if (dtype, d) in _TENSOR_CORE else "cuda_core"
+    if dtype not in _DTYPES or d not in _HEAD_DIMS or direction not in ("forward", "backward"):
+        raise ValueError(f"no K1 or K2 instance for {dtype} at head dim {d} ({direction})")
+    return _TENSOR_CORE.get((dtype, direction), "cuda_core") if d >= 16 else "cuda_core"
 
 
 def build_bwd() -> ctypes.CDLL:
@@ -231,18 +264,20 @@ def _check(q, k, v, rel_table, max_pos_emb):
 
 
 def _check_alignment(q, k, v, table):
-    """The tensor-core instance copies 16-byte chunks of q, k, v and table
+    """The tensor-core instances copy 16-byte chunks of q, k, v and table
     rows: every base pointer 16-byte aligned, batch and sequence strides
-    multiples of 8 elements.  Raises before any launch otherwise."""
+    multiples of 16 bytes (8 bf16 or 4 fp32 elements).  Raises before any
+    launch otherwise."""
     for name, t in (("q", q), ("k", k), ("v", v), ("rel_table", table)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned (data_ptr % 16 = "
-                             f"{t.data_ptr() % 16}), which the bf16 tensor-core "
+                             f"{t.data_ptr() % 16}), which the {q.dtype} tensor-core "
                              f"kernel needs")
+    per_chunk = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(0) % 8 or t.stride(1) % 8:
+        if t.stride(0) % per_chunk or t.stride(1) % per_chunk:
             raise ValueError(f"{name}'s batch and sequence strides {t.stride()[:2]} "
-                             f"must be multiples of 8 elements (16 bytes)")
+                             f"must be multiples of {per_chunk} elements (16 bytes)")
     b, n, h, _ = q.shape
     if b * h * -(-n // _MMA_BM) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
@@ -259,7 +294,7 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse)``, with ``lse`` the ``[B, h, n]`` fp32 row log-sum-exp that K2
     takes when ``with_lse`` and the kernel ran, else None.  ``table`` is in
     q's dtype.  The instance is :func:`kernel_instance`'s."""
-    global launches, mma_launches
+    global launches, mma_launches, tf32_launches
     if q.device.type == "cpu":
         return shaw_attention_reference(q, k, v, table, max_pos_emb, scale), None
     if q.device.type != "cuda":
@@ -267,8 +302,8 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, table, max_pos_emb)
     b, n, h, d = q.shape
     table = table.contiguous()
-    tensor_core = kernel_instance(q.dtype, d) == "tensor_core"
-    if tensor_core:
+    instance = kernel_instance(q.dtype, d, "forward")
+    if instance != "cuda_core":
         _check_alignment(q, k, v, table)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, n), dtype=torch.float32, device=q.device)
@@ -278,12 +313,18 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if with_lse else None)
-    if tensor_core:
+    if instance == "tensor_core":
         status = build_mma().se_shaw_attention_mma(
             *pointers, b, n, h, d, *strides, max_pos_emb, float(scale) * _LOG2E,
             _native.current_stream(q.device))
         _native.check(status, "se_shaw_attention_mma")
         mma_launches += 1
+    elif instance == "tensor_core_tf32":
+        status = build_tf32().se_shaw_attention_tf32(
+            *pointers, b, n, h, d, *strides, max_pos_emb, float(scale) * _LOG2E,
+            _native.current_stream(q.device))
+        _native.check(status, "se_shaw_attention_tf32")
+        tf32_launches += 1
     else:
         status = build().se_shaw_attention(
             *pointers, int(q.dtype == torch.bfloat16), b, n, h, d, *strides, max_pos_emb,
@@ -359,7 +400,7 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must match q, got {tuple(t.shape)} {t.dtype}")
     if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32:
         raise ValueError("lse must be the forward's [B, h, n] fp32 log-sum-exp")
-    tensor_core = kernel_instance(q.dtype, d) == "tensor_core"
+    tensor_core = kernel_instance(q.dtype, d, "backward") == "tensor_core"
     band_rows = min(_BM + n - 1, 2 * max_pos_emb + 1)
     # the tensor-core entry point refuses a band that does not fit itself
     if not tensor_core and band_rows * d * 4 + _STATIC_SMEM_BYTES > _SMEM_BYTES:

@@ -203,16 +203,17 @@ def test_copy_matches_pallas_backward(d, max_pos_emb):
     (torch.float32, 16, "cuda_core"), (torch.float32, 32, "cuda_core"),
 ])
 def test_backward_instance_dispatch(dtype, d, want):
-    """fused_shaw_attention_bwd picks its instance by kernel_instance, as
-    K1 does: bf16 at d 16 and 32 on tensor cores, the rest on CUDA cores."""
-    assert fa.kernel_instance(dtype, d) == want
+    """fused_shaw_attention_bwd picks its instance by kernel_instance
+    (direction "backward"): bf16 at d 16 and 32 on tensor cores, the rest,
+    fp32 at d 16 and 32 included, on CUDA cores."""
+    assert fa.kernel_instance(dtype, d, "backward") == want
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 16), (torch.bfloat16, 64),
                                      (torch.float64, 16), (torch.float32, 12)])
 def test_backward_dispatch_refuses_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError):
-        fa.kernel_instance(dtype, d)
+        fa.kernel_instance(dtype, d, "backward")
 
 
 def test_backward_takes_the_plain_version_on_cpu_for_either_instance():

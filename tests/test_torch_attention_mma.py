@@ -59,11 +59,15 @@ def test_skewed_bias_sees_every_offset():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
     (torch.bfloat16, 4, "cuda_core"), (torch.bfloat16, 8, "cuda_core"),
-    (torch.float32, 4, "cuda_core"), (torch.float32, 16, "cuda_core"),
-    (torch.float32, 32, "cuda_core"),
+    (torch.float32, 4, "cuda_core"), (torch.float32, 16, "tensor_core_tf32"),
+    (torch.float32, 32, "tensor_core_tf32"),
 ])
 def test_kernel_instance_dispatch(dtype, d, want):
+    """K1's instance (the forward, kernel_instance's default direction):
+    bf16 at d 16 and 32 on bf16 tensor cores, fp32 there in 3xTF32, d 4
+    and 8 on CUDA cores."""
     assert fa.kernel_instance(dtype, d) == want
+    assert fa.kernel_instance(dtype, d, "forward") == want
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float16, 16), (torch.bfloat16, 12),
