@@ -7,11 +7,12 @@ Run it from the root of a checkout on a machine with a CUDA card, nvcc
 (PATH, $CUDA_HOME or /usr/local/cuda), g++ and no JAX needed.  Phases, one
 line each (timings beside the card's name and power limit):
 
-1. the device, and ``nvidia-smi --query-gpu=name,power.limit``;
-2. build the eight native sources of ``csrc/`` (seven CUDA sources and the
+1. the device, and ``nvidia-smi --query-gpu=name,power.limit``; whether
+   scipy imports;
+2. build the nine native sources of ``csrc/`` (eight CUDA sources and the
    PESQ engine), one compiler each, all started together (seconds);
-   ptxas's registers and spills of the tensor-core instances of K1 (bf16
-   and fp32) and K2 and of K4 and K5 (no spills allowed), and their
+   ptxas's registers and spills of the tensor-core instances of K1 and K2
+   (bf16 and fp32 each) and of K4 and K5 (no spills allowed), and their
    resident warps per SM;
 3. K1 (all three instances: bf16 and fp32 on tensor cores at d 16 and 32,
    B'=3232 n=321 and n=1281 included, CUDA cores at d 4 and 8), K4 and K5
@@ -21,20 +22,23 @@ line each (timings beside the card's name and power limit):
    one;
 4. the serving path itself: ``Enhancer(fused_stft=True)`` on a full-width
    ``TSCNet(64, 201, fused_attention=True)`` (seeded random weights)
-   enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32; the
-   outputs must be finite, in order, cut to length, and agree with the
-   same weights run through the plain path; the launch count of every
-   kernel of the path over that run must be > 0 (the CUDA-core K1 is on
-   no main path: it takes head dims 4 and 8 only);
+   enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32 (at
+   ``matmul_precision=None``, full fp32, and at the default
+   ``"bfloat16"``, TF32 on the card); the outputs must be finite, in
+   order, cut to length, and agree with the same weights run through the
+   plain path; the launch count of every kernel of the path over that run
+   must be > 0 (the CUDA-core K1 is on no main path: it takes head dims 4
+   and 8 only);
 5. kernel path against plain path for ``enhance_batch`` on [32, 32000]
-   (per call, bf16 and fp32), K1's device time per batch from
+   (per call, bf16 and fp32 at ``matmul_precision=None``; the fp32 kernel
+   path also at the default, TF32), K1's device time per batch from
    ``torch.profiler`` (bf16 and fp32), and the kernel rows of K1 (each
    instance), K4 and K5: device time, per-call time, plain time, bound and
    library time (K1 at n = 1281 against SDPA over 8 batch chunks; K4 and
    K5 against their library calls in 5 alternating rounds, medians and
    per-round ratios printed);
 6. K2 (the Shaw-attention backward, through the autograd route whose
-   forward is K1; both instances, B'=3232 n=321 bf16 included) and K6 (the
+   forward is K1; all three instances, B'=3232 n=321 included) and K6 (the
    axis swap, forward and backward) against their plain versions at
    training shapes;
 7. the training path itself: ``make_fused_gan_train_step`` (generator
@@ -44,16 +48,19 @@ line each (timings beside the card's name and power limit):
    SGD-Nesterov lr 0.01 (discriminator 0.02), batches of 8 x 1 s
    tone-plus-noise; fp32 and bf16 steps, finite losses, a falling
    generator loss on one repeated batch, the tensor-core instances of K1
-   (bf16 and fp32) and both of K2 launched; one step of the kernel path
-   against the plain path (``fused_attention=False``), and one with
-   ``fused_relayout=True`` (K6 launched);
+   and K2 (bf16 and fp32 each) launched; per step each loss term, the
+   self-correcting weights and the Gram entries they come from, and both
+   models' gradient norms; one step of the kernel path against the plain
+   path (``fused_attention=False``), and one with ``fused_relayout=True``
+   (K6 launched);
 8. training timings (CUDA events, median after warm-up): generator step,
    host labels, discriminator step, whole step, kernel path against plain
    path, fp32 and bf16; the bf16 step's device time by kernel and its
-   busy share (``torch.profiler``); the kernel rows of K2 (tensor-core at
-   B'=808 n=161 and B'=3232 n=321, CUDA-core fp32 at B'=808 n=161, each
-   against the autograd backward of the SDPA yardstick) and K6; peak
-   device memory of a step with and without rematerialization.
+   busy share (``torch.profiler``); the kernel rows of K1 (both
+   tensor-core instances at B'=808 n=161), K2 (both tensor-core instances
+   at B'=808 n=161 and B'=3232 n=321, CUDA-core fp32 at d=8, each against
+   the autograd backward of the SDPA yardstick) and K6; peak device memory
+   of a step with and without rematerialization.
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -71,12 +78,14 @@ The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
 last line; with no CUDA device it exits 1 at once.
 
-fp32 comparisons run with TF32 off for matmuls and cuDNN convolutions, so
-that the plain path is full fp32.
+fp32 comparisons run with TF32 off for matmuls and cuDNN convolutions
+(torch's ``fp32_precision`` flags, ``"ieee"``), so that the plain path is
+full fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -91,6 +100,14 @@ import torch
 SEED = 0
 SR = 16000
 FAILURES: list[str] = []
+
+
+def full_fp32() -> None:
+    """fp32 matmuls and cuDNN convolutions in full fp32 (no TF32), by
+    torch's ``fp32_precision`` flags only: torch refuses to read its
+    precision once the legacy ``allow_tf32`` flags and these are mixed."""
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
 
 
 def check(ok: bool, what: str) -> None:
@@ -337,6 +354,43 @@ def read_grads(opt, module) -> dict:
     return grads
 
 
+@contextlib.contextmanager
+def sc_weight_trace():
+    """Every self-correcting weight computation of the discriminator steps
+    inside (``train.gan._sc_weights_from_gram``, wrapped) appends its 3x3
+    Gram matrix and its weights ``[w_c, w_e, w_n]`` (device tensors) to the
+    list this yields."""
+    from speech_enhancement_tpu_torch.train import gan
+
+    seen: list = []
+    original = gan._sc_weights_from_gram
+
+    def traced(gram):
+        w = original(gram)
+        seen.append((gram.detach().clone(), w.detach().clone()))
+        return w
+
+    gan._sc_weights_from_gram = traced
+    try:
+        yield seen
+    finally:
+        gan._sc_weights_from_gram = original
+
+
+def sc_step_text(metrics: dict, gram, w, disc_grad_norm) -> str:
+    """One training step's losses, self-correcting weights, the Gram entries
+    they come from (c = the (clean, clean) term's gradient, e = (clean,
+    est), n = (clean, noisy)) and the discriminator's gradient norm."""
+    m = {k: float(v) for k, v in metrics.items()}
+    gram = gram.double().cpu().tolist()
+    return (f"loss {m['loss']:.6g} (ri {m['loss_ri']:.5g}, mag {m['loss_mag']:.5g}, time "
+            f"{m['time_loss']:.5g}, gan {m['gan_loss']:.5g}), disc_loss {m['disc_loss']:.5g}; "
+            f"w_c, w_e, w_n {', '.join(f'{float(x):.5g}' for x in w)}; Gram c.c "
+            f"{gram[0][0]:.4g}, e.e {gram[1][1]:.4g}, n.n {gram[2][2]:.4g}, c.e "
+            f"{gram[0][1]:.4g}, c.n {gram[0][2]:.4g}, e.n {gram[1][2]:.4g}; discriminator "
+            f"|grad| {float(disc_grad_norm):.4g}")
+
+
 def training_phases(card: str, gen: torch.Generator) -> dict:
     """Phases 6-8: K2 and K6 against their plain versions, the training
     path through ``make_fused_gan_train_step``, and its timings.  Returns
@@ -353,14 +407,15 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     )
     from speech_enhancement_tpu_torch.train.gan import host_pesq_labels
 
-    errs = {"K2": 0.0, "K2mma": 0.0, "K6": 0.0}
+    errs = {"K2": 0.0, "K2mma": 0.0, "K2tf32": 0.0, "K6": 0.0}
     rows = {}
 
     # 6. K2 and K6 against their plain versions, at training shapes
     print("[6 training kernels vs plain] K2 fp32: dq, dk, dv within rtol 1e-4 + atol 1e-5 "
           "(summation order), dtable relative RMS < 1e-5 (fp32 atomics); bf16: relative "
-          "RMS < 1e-2 for each (roundings of P and dS*scale may flip); bf16 at d 16 and 32 "
-          "takes the tensor-core instance, the rest the CUDA-core one; K6 exact", flush=True)
+          "RMS < 1e-2 for each (roundings of P and dS*scale may flip); d 16 and 32 take "
+          "the tensor-core instances (bf16, and fp32 in 3xTF32), d 4 and 8 the CUDA-core "
+          "one; K6 exact", flush=True)
     both = (torch.float32, torch.bfloat16)
     names = ("dq", "dk", "dv", "dtable")
 
@@ -375,12 +430,13 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                 sum(p[3] for p in parts).to(table.dtype))
 
     # B' = 808 n = 161: the time conformer of batch 8 x 1 s; B' = 3232
-    # n = 321 (bf16): 2 s at batch 32; n = 1281: the length at which the
+    # n = 321: 2 s at batch 32; n = 1281: the length at which the
     # JAX package took K3; max_pos_emb 8: clipped table rows; then the
     # other head dims K2 is built for, d=32 at n = 161 and at n = 1281
     # unclipped (the tensor-core pass A's largest band) included
+    cuda_core_bwd_launches = fa.bwd_launches
     for b, n, max_pos, d, dtypes in ((808, 161, 512, 16, both),
-                                     (3232, 321, 512, 16, (torch.bfloat16,)),
+                                     (3232, 321, 512, 16, both),
                                      (8, 1281, 512, 16, both), (3, 100, 8, 16, both),
                                      (8, 1281, 8, 16, both), (8, 1281, 8, 32, both),
                                      (6, 70, 512, 4, both), (6, 70, 512, 8, both),
@@ -392,14 +448,16 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
             g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
             out = fa.fused_shaw_attention(*leaves, max_pos)
-            launched = fa.bwd_launches + fa.bwd_mma_launches
+            instance = fa.kernel_instance(dtype, d, "backward")
+            counter = {"tensor_core": "bwd_mma_launches", "tensor_core_tf32": "bwd_tf32_launches",
+                       "cuda_core": "bwd_launches"}[instance]
+            launched = getattr(fa, counter)
             got = torch.autograd.grad(out, leaves, g)
-            launched = fa.bwd_launches + fa.bwd_mma_launches - launched
+            launched = getattr(fa, counter) - launched
             del leaves, out
             want = bwd_reference(q, k, v, table, g, max_pos)
             torch.cuda.synchronize()
-            instance = fa.kernel_instance(dtype, d, "backward")
-            key = "K2mma" if instance == "tensor_core" else "K2"
+            key = {"tensor_core": "K2mma", "tensor_core_tf32": "K2tf32", "cuda_core": "K2"}[instance]
             report = []
             ok = all(a.dtype == dtype and a.shape == w.shape for a, w in zip(got, want))
             for name, a, w in zip(names, got, want):
@@ -418,6 +476,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                   f"abs err/relative RMS {', '.join(report)}")
             del q, k, v, table, g, got, want
         torch.cuda.empty_cache()
+    cuda_core_bwd_launches = fa.bwd_launches - cuda_core_bwd_launches
     for shape in ((8, 101, 161, 64), (32, 101, 321, 64)):  # [B, F, T, C] of 1 s and 2 s
         for dtype in both:
             x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
@@ -449,28 +508,38 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                                               compute_dtype=None if dtype == torch.float32
                                               else dtype) for dtype in both}
     states = {dtype: new_state() for dtype in both}
-    # each step's generator gradient norm by leaf, so that a loss that
-    # does not fall shows which step and leaf took the large update
+    # each step's gradient norms (the generator's by leaf), losses and
+    # self-correcting weights, so that a loss that does not fall shows
+    # which step, leaf and weight took the large update
     seen = {dtype: read_grads(states[dtype].gen_opt, states[dtype].gen) for dtype in both}
+    disc_seen = {dtype: read_grads(states[dtype].disc_opt, states[dtype].disc) for dtype in both}
     leaf_norms = {dtype: [] for dtype in both}
-    fa.launches = fa.mma_launches = fa.tf32_launches = fa.bwd_launches = fa.bwd_mma_launches = 0
+    disc_norms = {dtype: [] for dtype in both}
+    weights = {dtype: [] for dtype in both}
+    fa.launches = fa.mma_launches = fa.tf32_launches = 0
+    fa.bwd_launches = fa.bwd_mma_launches = fa.bwd_tf32_launches = 0
     fr.launches = 0
     t0 = time.perf_counter()
     history = {dtype: [] for dtype in both}
-    for dtype in both:
-        for i, (clean, noisy) in enumerate((batches[0],) * 3 + (batches[1],)):
-            # steps 0-2 on one repeated batch
-            history[dtype].append(steps[dtype](states[dtype], clean, noisy, i))
-            leaf_norms[dtype].append({n: g.double().norm() for n, g in seen[dtype].items()})
+    with sc_weight_trace() as sc:
+        for dtype in both:
+            for i, (clean, noisy) in enumerate((batches[0],) * 3 + (batches[1],)):
+                # steps 0-2 on one repeated batch
+                history[dtype].append(steps[dtype](states[dtype], clean, noisy, i))
+                leaf_norms[dtype].append({n: g.double().norm() for n, g in seen[dtype].items()})
+                disc_norms[dtype].append(torch.stack([g.double().norm()
+                                                      for g in disc_seen[dtype].values()]).norm())
+                weights[dtype].append(sc[-1])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
-                "K2 tensor-core": fa.bwd_mma_launches, "K2 CUDA-core": fa.bwd_launches}
-    cuda_core_fwd_launches = fa.launches
+                "K2 tensor-core": fa.bwd_mma_launches, "K2 fp32 tensor-core": fa.bwd_tf32_launches}
+    cuda_core_fwd_launches, cuda_core_bwd_train = fa.launches, fa.bwd_launches
     print(f"[7 training path] make_fused_gan_train_step, TSCNet(64, 201, fused_attention=True) "
           f"+ Discriminator(16), scp, batch 8 x 16000, 4 steps each fp32 and bf16 in "
           f"{train_s:.2f} s (first calls included); launches {launches}; CUDA-core K1 "
-          f"{cuda_core_fwd_launches} (no training path has d 4 or 8)", flush=True)
+          f"{cuda_core_fwd_launches}, CUDA-core K2 {cuda_core_bwd_train} (no training path has "
+          f"d 4 or 8)", flush=True)
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times by the training path")
     for dtype in both:
@@ -480,16 +549,17 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         for i, norms in enumerate(leaf_norms[dtype]):
             norms = {n: float(x) for n, x in norms.items()}
             top = max(norms, key=norms.get)
-            print(f"    info {dtype} step {i}: generator loss {values[i]['loss']:.5f}, gradient "
-                  f"norm {math.sqrt(sum(x * x for x in norms.values())):.4g} (largest leaf "
-                  f"{top} {norms[top]:.3g})", flush=True)
+            print(f"    info {dtype} step {i}: "
+                  f"{sc_step_text(history[dtype][i], *weights[dtype][i], disc_norms[dtype][i])}; "
+                  f"generator |grad| {math.sqrt(sum(x * x for x in norms.values())):.4g} "
+                  f"(largest leaf {top} {norms[top]:.3g})", flush=True)
         gen_losses = [m["loss"] for m in values[:3]]
         check(gen_losses[-1] < gen_losses[0],
               f"{dtype} generator loss on one repeated batch falls: "
               f"{', '.join(f'{x:.5f}' for x in gen_losses)}")
         print(f"    info {dtype} last step: "
               + ", ".join(f"{k} {v:.5f}" for k, v in values[-1].items()), flush=True)
-    del states, seen, leaf_norms
+    del states, seen, disc_seen, leaf_norms, disc_norms, weights
 
     # one fp32 step from the same weights, batch and seed: kernel path, and
     # kernel path with the K6 fold, against the plain path
@@ -600,13 +670,33 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     del state, prof
     torch.cuda.empty_cache()
 
-    # K2: the tensor-core instance (bf16) at the training shape and at 2 s
-    # x batch 32, the CUDA-core instance (fp32) at the training shape
-    for b, n, dtype in ((808, 161, torch.bfloat16), (3232, 321, torch.bfloat16),
-                        (808, 161, torch.float32)):
-        q, k, v, table = attention_operands(b, n, dtype, gen)
+    # K1 at the training shape: both tensor-core instances (32 launches a
+    # run), against SDPA with the bias as mask, as phase 5 at n = 321
+    for dtype, key, label in ((torch.bfloat16, "K1mma", "K1 tensor-core"),
+                              (torch.float32, "K1tf32", "K1 fp32 tensor-core (3xTF32)")):
+        q, k, v, table = attention_operands(808, 161, dtype, gen)
+        call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
+                                lambda: fa.shaw_attention_reference(q, k, v, table))
+        bnd, nbytes = attention_bound(808, 161, dtype, tf32x3=dtype == torch.float32)
+        dev = device_ms(lambda: fa.fused_shaw_attention(q, k, v, table))
+        alone, chain = sdpa_yardstick(q, k, v, table)
+        rows[key + "_n161"] = row(
+            f"{label} B'=808 n=161 {dtype} (the training shape)", dev, call, plain, bnd, nbytes,
+            alone, card, f"; SDPA with the bias built beforehand "
+            f"{'n/a' if chain is None else f'{chain:.4f} ms'}",
+            shape="B'=808 n=161 h=4 d=16", dtype=dtype)
+        del q, k, v, table
+        torch.cuda.empty_cache()
+
+    # K2: both tensor-core instances at the training shape and at 2 s x
+    # batch 32; the CUDA-core instance at d = 8, the head dim it keeps
+    for b, n, dtype, d in ((808, 161, torch.bfloat16, 16), (3232, 321, torch.bfloat16, 16),
+                           (808, 161, torch.float32, 16), (3232, 321, torch.float32, 16),
+                           (808, 161, torch.float32, 8)):
+        q, k, v, table = attention_operands(b, n, dtype, gen, d=d)
         g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
-        out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, 0.25, with_lse=True)
+        scale = d ** -0.5
+        out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, scale, with_lse=True)
         kernel = lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g)  # noqa: E731
         call, plain = time_pair(kernel, lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
                                 warmup=1, reps=6)
@@ -614,8 +704,13 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         # bias term, dK, dtable); q, k, v, out, g, lse in, dq, dk, dv out
         elem = torch.finfo(dtype).bits // 8
         nbytes = 8 * q.numel() * elem + lse.numel() * 4 + table.numel() * elem
-        flops = 16.0 * b * 4 * n * n * 16
-        bnd = bound(flops, nbytes, dtype)
+        flops = 16.0 * b * 4 * n * n * d
+        instance = fa.kernel_instance(dtype, d, "backward")
+        # fp32: the 3xTF32 bound for the tensor-core instance, beside it the
+        # 67 TFLOP/s CUDA-core one (and the other way round for CUDA cores)
+        tf32_bnd = bound(flops, nbytes, dtype, tf32x3=True)
+        fp32_bnd = bound(flops, nbytes, dtype)
+        bnd = tf32_bnd if instance == "tensor_core_tf32" else fp32_bnd
         dev = device_ms(kernel)
         # the yardstick's backward: autograd through the Shaw-bias build and
         # scaled_dot_product_attention (K1's library call)
@@ -623,26 +718,28 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
         qt, kt, vt = (t.transpose(1, 2) for t in leaves[:3])
         bias = torch.einsum("bhid,ijd->bhij", qt,
-                            leaves[3][fa.relative_index(n, 512, q.device)]) * 0.25
+                            leaves[3][fa.relative_index(n, 512, q.device)]) * scale
         y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2)
         lib = library(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
         del leaves, qt, kt, vt, bias, y
-        instance = fa.kernel_instance(dtype, 16, "backward")
-        # fp32 on CUDA cores: beside its 67 TFLOP/s bound, the 3xTF32 one a
-        # tensor-core instance would be held to
-        tf32_bnd = bound(flops, nbytes, dtype, tf32x3=True) if dtype == torch.float32 else None
-        r = row(f"K2 {instance.replace('_', '-')} B'={b} n={n} {dtype}", dev, call, plain, bnd,
-                nbytes, lib, card, "; library: autograd backward of the bias build and SDPA"
-                + ("" if tf32_bnd is None else f"; 3xTF32 bound {tf32_bnd[0]:.4f} ms "
-                   f"({tf32_bnd[1]}; {100 * tf32_bnd[0] / dev:.1f}%)"),
-                shape=f"B'={b} n={n} h=4 d=16", dtype=dtype)
-        if instance == "cuda_core":
-            r["bound_3xtf32_ms"] = tf32_bnd[0]
-            rows["K2"] = r
-        elif n == 161:
-            rows["K2mma"] = r
+        if dtype == torch.float32:
+            other, other_name = ((fp32_bnd, "67 TFLOP/s fp32") if instance == "tensor_core_tf32"
+                                 else (tf32_bnd, "3xTF32"))
+            extra = (f"; {other_name} bound {other[0]:.4f} ms ({other[1]}; "
+                     f"{100 * other[0] / dev:.1f}%)")
         else:
-            rows["K2mma"]["n321"] = r
+            extra = ""
+        r = row(f"K2 {instance.replace('_', '-')} B'={b} n={n} d={d} {dtype}", dev, call, plain,
+                bnd, nbytes, lib, card, "; library: autograd backward of the bias build and SDPA"
+                + extra, shape=f"B'={b} n={n} h=4 d={d}", dtype=dtype)
+        if dtype == torch.float32:
+            r["bound_3xtf32_ms" if instance == "cuda_core" else "bound_fp32_cuda_core_ms"] = \
+                other[0]
+        key = {"tensor_core": "K2mma", "tensor_core_tf32": "K2tf32", "cuda_core": "K2"}[instance]
+        if n == 321:
+            rows[key]["n321"] = r
+        else:
+            rows[key] = r
         del q, k, v, table, g, out, lse
         torch.cuda.empty_cache()
     for shape, target in (((8, 101, 161, 64), "no slower than transpose().contiguous()"),
@@ -691,7 +788,9 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         del state
         torch.cuda.empty_cache()
     return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "rows": rows,
-            "cuda_core_fwd_launches": cuda_core_fwd_launches}
+            "cuda_core_fwd_launches": cuda_core_fwd_launches,
+            "cuda_core_bwd_launches": cuda_core_bwd_train,
+            "cuda_core_bwd_check_launches": cuda_core_bwd_launches}
 
 
 def main() -> int:
@@ -707,8 +806,7 @@ def main() -> int:
     from speech_enhancement_tpu_torch.ops import fused_relayout as fr
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_fp32()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -716,14 +814,19 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    try:  # host data (wav IO, resampling) would lean on it
+        import scipy
+        scipy_note = f"scipy {scipy.__version__} imports"
+    except ImportError as exc:
+        scipy_note = f"scipy does not import ({exc})"
     print(f"[1 device] {kind}, {count} visible; nvidia-smi name,power.limit: {card}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off for "
-          f"matmuls and cuDNN", flush=True)
+          f"matmuls and cuDNN outside the Enhancers; {scipy_note}", flush=True)
 
     # 2. build: one compiler per source, all at once
     t0 = time.perf_counter()
     builds = (fs.build, fa.build, fa.build_mma, fa.build_tf32, fa.build_bwd, fa.build_bwd_mma,
-              fr.build, pesq.build)
+              fa.build_bwd_tf32, fr.build, pesq.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for build in [pool.submit(b) for b in builds]:
             build.result()
@@ -739,6 +842,9 @@ def main() -> int:
             ("shaw_attention_bwd_mma", ["bwd_query_mma_kernelILi16", "bwd_key_mma_kernelILi16",
                                         "bwd_query_mma_kernelILi32", "bwd_key_mma_kernelILi32"],
              "K2 tensor-core instance"),
+            ("shaw_attention_bwd_tf32", ["bwd_query_tf32_kernelILi16", "bwd_key_tf32_kernelILi16",
+                                         "bwd_query_tf32_kernelILi32", "bwd_key_tf32_kernelILi32"],
+             "K2 fp32 tensor-core instance"),
             ("stft", ["11stft_kernel", "12istft_kernel"], "K4 and K5")):  # mangled lengths
         report = ptxas_report(_native.build_logs.get(library, ""))
         for name, lines in sorted(report.items()):
@@ -770,6 +876,15 @@ def main() -> int:
                 print(f"    info {line}", flush=True)
             else:
                 check(min(blocks_a, blocks_b) >= 2, line + " (at least 8)")
+            # the fp32 instance stages fp32 rows: at least 8 warps at the
+            # training shape (d 16, n 161), the others as they come
+            blocks_a, blocks_b = fa.bwd_tf32_occupancy(d, n)
+            line = (f"K2 fp32 tensor-core instance d={d} n={n}: {4 * blocks_a} resident warps per "
+                    f"SM in pass A, {4 * blocks_b} in pass B")
+            if (d, n) == (16, 161):
+                check(min(blocks_a, blocks_b) >= 2, line + " (at least 8)")
+            else:
+                print(f"    info {line}", flush=True)
 
     # 3. kernels against their plain versions, main-path shapes
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -857,24 +972,31 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     lengths = [int(n) for n in rng.integers(16000, 64001, size=12)]
     utts = [(0.1 * rng.standard_normal(n)).astype(np.float32) for n in lengths]
-    kernel_bf16 = Enhancer(model, compute_dtype=torch.bfloat16, fused_stft=True, device="cuda")
-    kernel_fp32 = Enhancer(model, fused_stft=True, device="cuda")
-    plain_bf16 = Enhancer(plain_model, compute_dtype=torch.bfloat16, device="cuda")
-    plain_fp32 = Enhancer(plain_model, device="cuda")
+    # matmul_precision=None (full fp32) wherever the kernel path is held to
+    # the plain path; the fp32 default, "bfloat16", runs TF32 matmuls and
+    # convolutions on the card
+    kernel_bf16 = Enhancer(model, compute_dtype=torch.bfloat16, matmul_precision=None,
+                           fused_stft=True, device="cuda")
+    kernel_fp32 = Enhancer(model, matmul_precision=None, fused_stft=True, device="cuda")
+    kernel_tf32 = Enhancer(model, fused_stft=True, device="cuda")
+    plain_bf16 = Enhancer(plain_model, compute_dtype=torch.bfloat16, matmul_precision=None,
+                          device="cuda")
+    plain_fp32 = Enhancer(plain_model, matmul_precision=None, device="cuda")
 
     fa.launches = fa.mma_launches = fa.tf32_launches = fs.stft_launches = fs.istft_launches = 0
     t0 = time.perf_counter()
     out = {"kernel bf16": kernel_bf16.enhance(utts, batch_size=8),
-           "kernel fp32": kernel_fp32.enhance(utts, batch_size=8)}
+           "kernel fp32": kernel_fp32.enhance(utts, batch_size=8),
+           "kernel fp32 default (TF32)": kernel_tf32.enhance(utts, batch_size=8)}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
                 "K4": fs.stft_launches, "K5": fs.istft_launches}
     main_cuda_core = fa.launches
     print(f"[4 main path] 12 utterances {min(lengths)}-{max(lengths)} samples, batch 8, "
-          f"bf16 + fp32 kernel path in {main_s:.2f} s (first calls included); "
-          f"launches {launches}; CUDA-core K1 {fa.launches} (no main path has d 4 or 8)",
-          flush=True)
+          f"bf16 + fp32 (matmul_precision None and the default) kernel path in {main_s:.2f} s "
+          f"(first calls included); launches {launches}; CUDA-core K1 {fa.launches} (no main "
+          f"path has d 4 or 8)", flush=True)
     for name, n in launches.items():
         check(n > 0, f"{name} launched {n} times by the main path")
     out["plain bf16"] = plain_bf16.enhance(utts, batch_size=8)
@@ -887,7 +1009,9 @@ def main() -> int:
     # fp32: the kernels and the plain ops differ in summation order only;
     # a random-init 8-conformer stack amplifies that, so 1e-3 (CPU parity
     # at width 16 is 1e-4)
-    for name, limit in (("kernel fp32", 1e-3), ("kernel bf16", 0.35), ("plain bf16", 0.35)):
+    # TF32 keeps 10 mantissa bits where bf16 keeps 7: the bf16 bound holds it
+    for name, limit in (("kernel fp32", 1e-3), ("kernel bf16", 0.35), ("plain bf16", 0.35),
+                        ("kernel fp32 default (TF32)", 0.35)):
         err = rel_rms(np.concatenate(out[name]), ref)
         check(err < limit, f"{name} vs plain fp32: relative RMS {err:.3e} (bound {limit}; "
               f"bf16 bound as tests/test_enhance.py)")
@@ -906,10 +1030,16 @@ def main() -> int:
           f"{plain_ms:.3f} ms ({card})", flush=True)
     kernel_ms32, plain_ms32 = time_pair(lambda: kernel_fp32.enhance_batch(batch),
                                         lambda: plain_fp32.enhance_batch(batch), reps=6)
-    print(f"    enhance_batch [32, 32000] fp32: kernel path {kernel_ms32:.3f} ms, plain path "
-          f"{plain_ms32:.3f} ms ({card})", flush=True)
+    print(f"    enhance_batch [32, 32000] fp32, matmul_precision=None: kernel path "
+          f"{kernel_ms32:.3f} ms, plain path {plain_ms32:.3f} ms ({card})", flush=True)
+    tf32_ms, ieee_ms = time_pair(lambda: kernel_tf32.enhance_batch(batch),
+                                 lambda: kernel_fp32.enhance_batch(batch), reps=6)
+    print(f"    enhance_batch [32, 32000] fp32 kernel path, in turns: matmul_precision "
+          f"\"bfloat16\" (the default; TF32 matmuls and convolutions) {tf32_ms:.3f} ms, None "
+          f"(full fp32) {ieee_ms:.3f} ms ({card})", flush=True)
     from torch.profiler import ProfilerActivity, profile
-    for label, enhancer in (("bf16", kernel_bf16), ("fp32", kernel_fp32)):
+    for label, enhancer in (("bf16", kernel_bf16), ("fp32", kernel_fp32),
+                            ("fp32 default (TF32)", kernel_tf32)):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             enhancer.enhance_batch(batch)
         kernel_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
@@ -922,7 +1052,7 @@ def main() -> int:
         busiest = sorted(kernel_us, key=lambda e: -e[1])[:6]
         print("    info busiest kernels: " + "; ".join(f"{us / 1e3:.3f} ms {key[:60]}"
                                                    for key, us in busiest), flush=True)
-    del kernel_bf16, kernel_fp32, plain_bf16, plain_fp32, prof
+    del kernel_bf16, kernel_fp32, kernel_tf32, plain_bf16, plain_fp32, prof
     torch.cuda.empty_cache()
 
     rows = {}
@@ -1039,6 +1169,8 @@ def main() -> int:
         return 1
     pkg = "speech_enhancement_tpu_torch"
     tl = train["launches"]
+    rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
+    rows["K1tf32"]["n161"] = train["rows"]["K1tf32_n161"]
     kernels = [
         {"name": "shaw_attention_fwd_tensor_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_mma.cu",
@@ -1062,11 +1194,18 @@ def main() -> int:
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
          "launches": tl["K2 tensor-core"], "max_abs_err": train["errs"]["K2mma"],
          **train["rows"]["K2mma"]},
+        {"name": "shaw_attention_bwd_tf32", "route": "cuda",
+         "source": f"{pkg}/csrc/shaw_attention_bwd_tf32.cu",
+         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
+         "launches": tl["K2 fp32 tensor-core"], "max_abs_err": train["errs"]["K2tf32"],
+         **train["rows"]["K2tf32"]},
         {"name": "shaw_attention_bwd_cuda_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         "launches": tl["K2 CUDA-core"], "max_abs_err": train["errs"]["K2"],
-         **train["rows"]["K2"]},
+         "launches": train["cuda_core_bwd_launches"],
+         "check_launches": train["cuda_core_bwd_check_launches"],
+         "check_launches_from": "phase-6 checks at head dims 4 and 8: no main path reaches it",
+         "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
          "launches": launches["K4"], "max_abs_err": errs["K4"], **rows["K4"]},

@@ -51,9 +51,10 @@
 // bandwidth; no tensor cores yet.  No loop here descends with min/max
 // bounds (the nvcc 12.9 fault recorded for K5 in PERF.md).
 //
-// This is the CUDA-core instance: fp32 at head dims 4, 8, 16 and 32, and
-// bf16 at 4 and 8.  bf16 at 16 and 32 is the tensor-core instance
-// (csrc/shaw_attention_bwd_mma.cu), and the entry point here refuses it.
+// This is the CUDA-core instance: fp32 and bf16 at head dims 4 and 8.
+// Head dims 16 and 32 are the tensor-core instances
+// (csrc/shaw_attention_bwd_mma.cu for bf16, shaw_attention_bwd_tf32.cu for
+// fp32), and the entry point here refuses them.
 //
 // The C entry point launches pass A then pass B on the caller's stream and
 // returns cudaGetLastError() after them.
@@ -61,8 +62,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-
-#include <type_traits>
 
 #include "cvt.cuh"
 
@@ -356,9 +355,8 @@ int launch(const void* q, const void* k, const void* v, const void* table,
            int h, long long q_sb, long long q_sn, long long k_sb,
            long long k_sn, long long v_sb, long long v_sn, int max_pos,
            float scale, int groups, int band_rows, cudaStream_t stream) {
-  constexpr int BN_A = D >= 32 ? 32 : kBN;  // bounds pass A's registers
   const size_t band_bytes = static_cast<size_t>(band_rows) * D * sizeof(float);
-  auto* qk = shaw_bwd_query_kernel<T, D, kBM, BN_A>;
+  auto* qk = shaw_bwd_query_kernel<T, D, kBM, kBN>;
   cudaError_t err = cudaFuncSetAttribute(
       qk, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(band_bytes));
@@ -399,21 +397,8 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
       return launch<T, 8>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
                           dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn, v_sb,
                           v_sn, max_pos, scale, groups, band_rows, stream);
-    case 16:  // bf16 at d 16 and 32: the tensor-core instance's
-      if constexpr (std::is_same_v<T, float>)
-        return launch<T, 16>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
-                             dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn,
-                             v_sb, v_sn, max_pos, scale, groups, band_rows,
-                             stream);
-      break;
-    case 32:
-      if constexpr (std::is_same_v<T, float>)
-        return launch<T, 32>(q, k, v, table, out, g, lse, delta, dq, dk, dv,
-                             dtable, batch, n, h, q_sb, q_sn, k_sb, k_sn,
-                             v_sb, v_sn, max_pos, scale, groups, band_rows,
-                             stream);
-      break;
   }
+  // d 16 and 32: the tensor-core instances'
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -426,9 +411,9 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 // dtype of q.  lse (from the forward) and delta (scratch): [batch, h, n]
 // fp32.  dtable: [2 * max_pos + 1, d] fp32, zeroed by the caller.  groups:
 // pass A's grid-stride over the batch; band_rows: the largest block band,
-// min(64 + n - 1, 2 * max_pos + 1).  is_bf16 selects bfloat16 over fp32;
-// bf16 at d 16 or 32 returns cudaErrorInvalidValue
-// (shaw_attention_bwd_mma.cu takes it).
+// min(64 + n - 1, 2 * max_pos + 1).  is_bf16 selects bfloat16 over fp32.
+// d is 4 or 8; d 16 or 32 returns cudaErrorInvalidValue
+// (shaw_attention_bwd_mma.cu and shaw_attention_bwd_tf32.cu take them).
 extern "C" int se_shaw_attention_bwd(
     const void* q, const void* k, const void* v, const void* table,
     const void* out, const void* g, const void* lse, void* delta, void* dq,

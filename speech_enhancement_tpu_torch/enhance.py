@@ -10,6 +10,7 @@ conformers through K1.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Sequence
 
@@ -39,6 +40,31 @@ def wrap_pad(x: np.ndarray, target: int) -> np.ndarray:
     return np.pad(x, (0, target - len(x)), mode="wrap")
 
 
+# the JAX Enhancer's matmul_precision values and torch's fp32 precision for
+# CUDA matmuls and cuDNN convolutions nearest to each: torch has no
+# single-pass bf16 mode for fp32 products on CUDA, so "bfloat16" takes TF32
+MATMUL_PRECISIONS = {"bfloat16": "tf32", "tensorfloat32": "tf32", "float32": "ieee",
+                     "highest": "ieee", None: "ieee"}
+
+
+@contextlib.contextmanager
+def fp32_precision(mode: str):
+    """torch's fp32 precision of CUDA matmuls and cuDNN convolutions set to
+    ``mode`` (``"tf32"`` or ``"ieee"``) inside, the previous settings
+    restored on exit, also when the body raises.  Only the
+    ``fp32_precision`` flags are read and written: torch refuses to read
+    its precision once the legacy ``allow_tf32`` flags and these have both
+    been set.  The flags are process-wide, so two threads that enhance at
+    once with different modes race on them."""
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    before = (matmul.fp32_precision, conv.fp32_precision)
+    matmul.fp32_precision = conv.fp32_precision = mode
+    try:
+        yield
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = before
+
+
 class Enhancer:
     """Batched enhancer for a ``TSCNet``-style generator on one device.
 
@@ -47,11 +73,26 @@ class Enhancer:
     is); the featurization, the magnitude and phase, and the output stay
     fp32.  ``device`` is ``cuda`` when None (``'cpu'`` runs on the CPU)
     and raises when CUDA is asked for and absent.
+
+    ``matmul_precision`` takes the JAX Enhancer's values and maps each to
+    torch's fp32 precision for the CUDA matmuls and cuDNN convolutions of
+    a batch (:data:`MATMUL_PRECISIONS`, applied by :func:`fp32_precision`
+    around each batch): ``"bfloat16"`` (the default, as in the JAX
+    package) and ``"tensorfloat32"`` run them in TF32, which keeps 10
+    mantissa bits of each operand where the TPU's single-pass bf16 keeps
+    7; ``"float32"``, ``"highest"`` and None run them in full fp32.  CPU
+    matmuls ignore the setting, and so do the hand-written kernels (K1's
+    3xTF32 and bf16 instances, K4, K5), whose arithmetic is their own at
+    every setting.  Any other value raises ``ValueError``.
     """
 
     def __init__(self, model: torch.nn.Module, n_fft: int = 400, hop: int = 100,
                  quantum: int = 8000, compute_dtype: torch.dtype | None = None,
-                 fused_stft: bool = False, device=None):
+                 matmul_precision: str | None = "bfloat16", fused_stft: bool = False,
+                 device=None):
+        if matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision {matmul_precision!r} is not one of "
+                             f"{list(MATMUL_PRECISIONS)}")
         self.device = resolve_device(device)
         if compute_dtype is not None:
             model = copy.deepcopy(model).to(dtype=compute_dtype)
@@ -64,10 +105,15 @@ class Enhancer:
             quantum = max(hop, quantum - quantum % hop)
         self.quantum = quantum
         self.compute_dtype = compute_dtype
+        self.matmul_precision = matmul_precision
         self.fused_stft = fused_stft
 
     @torch.inference_mode()
     def _step(self, noisy: torch.Tensor) -> torch.Tensor:
+        with fp32_precision(MATMUL_PRECISIONS[self.matmul_precision]):
+            return self._enhance(noisy)
+
+    def _enhance(self, noisy: torch.Tensor) -> torch.Tensor:
         stft_fn, istft_fn = ((fused_stft, fused_istft) if self.fused_stft
                              else (compressed_stft, uncompressed_istft))
         _, noisy_n, c = normalize_batch(noisy, noisy)
@@ -140,7 +186,8 @@ def predict_one(model: torch.nn.Module, noisy_signal: np.ndarray, n_fft: int = 4
                 hop: int = 100, device=None) -> np.ndarray:
     """Single-utterance predict with the reference semantics: wrap-pad only
     to the next hop multiple, enhance, cut back to the input length.
-    ``device`` as for :class:`Enhancer`."""
+    ``device`` as for :class:`Enhancer`, whose default ``matmul_precision``
+    it takes, as the JAX ``predict_one`` does."""
     length = len(noisy_signal)
     padded = ((length + hop - 1) // hop) * hop
     x = wrap_pad(np.asarray(noisy_signal, np.float32), padded)[None]

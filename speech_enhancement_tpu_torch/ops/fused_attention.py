@@ -4,12 +4,12 @@ backward (K2, with K3 folded in).
 Replaces ``speech_enhancement_tpu/ops/pallas_attention.py``: the forward
 ``_attn_kernel`` (via ``_kernel_call``) and the backward
 ``_attn_bwd_kernel`` / ``_attn_bwd_drel_kernel`` (via ``_bwd_kernel_call``).
-K1 has three instances: bf16 at head dims 16 and 32 runs on tensor cores
-(``csrc/shaw_attention_mma.cu``), fp32 at head dims 16 and 32 on tensor
-cores in 3xTF32 (``csrc/shaw_attention_tf32.cu``), and both dtypes at head
-dims 4 and 8 on CUDA cores (``csrc/shaw_attention.cu``).  K2 has two:
-``csrc/shaw_attention_bwd_mma.cu`` (bf16 at head dims 16 and 32, tensor
-cores) and ``csrc/shaw_attention_bwd.cu`` (the rest).
+K1 and K2 have three instances each: bf16 at head dims 16 and 32 runs on
+tensor cores (``csrc/shaw_attention_mma.cu``,
+``csrc/shaw_attention_bwd_mma.cu``), fp32 at head dims 16 and 32 on tensor
+cores in 3xTF32 (``csrc/shaw_attention_tf32.cu``,
+``csrc/shaw_attention_bwd_tf32.cu``), and both dtypes at head dims 4 and 8
+on CUDA cores (``csrc/shaw_attention.cu``, ``csrc/shaw_attention_bwd.cu``).
 :func:`kernel_instance` picks one from (dtype, head dim, direction).  Each
 source's header says what bounds it on an H100 and how it is laid out.
 ``ShawAttention(fused=True)`` (the time conformer of
@@ -35,9 +35,11 @@ __all__ = [
     "build",
     "build_bwd",
     "build_bwd_mma",
+    "build_bwd_tf32",
     "build_mma",
     "build_tf32",
     "bwd_mma_occupancy",
+    "bwd_tf32_occupancy",
     "fused_shaw_attention",
     "fused_shaw_attention_bwd",
     "fused_shaw_attention_fwd",
@@ -50,22 +52,23 @@ __all__ = [
 ]
 
 # kernel launches since import (or since a caller reset them): K1's CUDA-core
-# instance, K1's bf16 and fp32 tensor-core instances, K2's CUDA-core and
-# tensor-core instances
+# instance, K1's bf16 and fp32 tensor-core instances, and K2's likewise
 launches = 0
 mma_launches = 0
 tf32_launches = 0
 bwd_launches = 0
 bwd_mma_launches = 0
+bwd_tf32_launches = 0
 
 _HEAD_DIMS = (4, 8, 16, 32)  # the head dims K1 and K2 are built for
 _DTYPES = (torch.float32, torch.bfloat16)
-# the instance of each (dtype, head dim >= 16, direction); the rest
-# (head dims 4 and 8, and the fp32 backward) run on CUDA cores
+# the instance of each (dtype, head dim >= 16, direction); head dims 4 and
+# 8 run on CUDA cores
 _TENSOR_CORE = {
     (torch.bfloat16, "forward"): "tensor_core",    # csrc/shaw_attention_mma.cu
     (torch.float32, "forward"): "tensor_core_tf32",  # csrc/shaw_attention_tf32.cu
     (torch.bfloat16, "backward"): "tensor_core",   # csrc/shaw_attention_bwd_mma.cu
+    (torch.float32, "backward"): "tensor_core_tf32",  # csrc/shaw_attention_bwd_tf32.cu
 }
 # the tensor-core instances' tiling (kWarps * 16 query rows per block, kBN
 # keys per tile, kWarpBand band rows per warp, R' pitch kRP), mirrored by
@@ -108,6 +111,13 @@ _SIGNATURES_BWD_MMA = {
     # d, band_rows, *blocks of pass A, *blocks of pass B
     "se_shaw_attention_bwd_mma_occupancy": [_I, _I, ctypes.POINTER(ctypes.c_int),
                                             ctypes.POINTER(ctypes.c_int)],
+}
+_SIGNATURES_BWD_TF32 = {
+    # as se_shaw_attention_bwd_mma, fp32 operands
+    "se_shaw_attention_bwd_tf32": _SIGNATURES_BWD_MMA["se_shaw_attention_bwd_mma"],
+    # d, band_rows, *blocks of pass A, *blocks of pass B
+    "se_shaw_attention_bwd_tf32_occupancy":
+        _SIGNATURES_BWD_MMA["se_shaw_attention_bwd_mma_occupancy"],
 }
 _BM = 64  # query rows per block of K2's pass A (csrc/shaw_attention_bwd.cu kBM)
 _SMEM_BYTES = 227 * 1024  # shared memory a block may use on an H100
@@ -153,11 +163,11 @@ def tf32_occupancy(d: int) -> int:
 def kernel_instance(dtype: torch.dtype, d: int, direction: str = "forward") -> str:
     """Which instance of K1 (``direction="forward"``) or K2
     (``"backward"``) takes operands of ``dtype`` at head dim ``d``:
-    ``"tensor_core"`` (bf16 at d 16 or 32, either direction: bf16 mma.sync,
-    fp32 accumulate), ``"tensor_core_tf32"`` (the fp32 forward at d 16 or
-    32: 3xTF32 mma.sync, about fp32's accuracy) or ``"cuda_core"`` (d 4 or
-    8, below one mma k-step, and the fp32 backward).  Dispatch, not a
-    fallback: a failed build or launch of the chosen instance raises."""
+    ``"tensor_core"`` (bf16 at d 16 or 32: bf16 mma.sync, fp32
+    accumulate), ``"tensor_core_tf32"`` (fp32 at d 16 or 32: 3xTF32
+    mma.sync, about fp32's accuracy) or ``"cuda_core"`` (d 4 or 8, below
+    one mma k-step), in either direction.  Dispatch, not a fallback: a
+    failed build or launch of the chosen instance raises."""
     if dtype not in _DTYPES or d not in _HEAD_DIMS or direction not in ("forward", "backward"):
         raise ValueError(f"no K1 or K2 instance for {dtype} at head dim {d} ({direction})")
     return _TENSOR_CORE.get((dtype, direction), "cuda_core") if d >= 16 else "cuda_core"
@@ -174,15 +184,32 @@ def build_bwd_mma() -> ctypes.CDLL:
     return _native.load("shaw_attention_bwd_mma", _SIGNATURES_BWD_MMA)
 
 
-def bwd_mma_occupancy(d: int, n: int, max_pos_emb: int = 512) -> tuple[int, int]:
-    """Resident blocks (of 4 warps) per SM of the tensor-core K2's pass A,
-    whose band of clipped table rows grows with ``n``, and pass B at head
-    dim ``d``, as the CUDA runtime computes them for the built kernels."""
+def build_bwd_tf32() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/shaw_attention_bwd_tf32.cu``
+    (K2, the fp32 tensor-core instance)."""
+    return _native.load("shaw_attention_bwd_tf32", _SIGNATURES_BWD_TF32)
+
+
+def _bwd_occupancy(lib: ctypes.CDLL, entry: str, d: int, n: int,
+                   max_pos_emb: int) -> tuple[int, int]:
     a, b = ctypes.c_int(0), ctypes.c_int(0)
     band_rows = min(_BM + n - 1, 2 * max_pos_emb + 1)
-    _native.check(build_bwd_mma().se_shaw_attention_bwd_mma_occupancy(
-        d, band_rows, ctypes.byref(a), ctypes.byref(b)), "se_shaw_attention_bwd_mma_occupancy")
+    _native.check(getattr(lib, entry)(d, band_rows, ctypes.byref(a), ctypes.byref(b)), entry)
     return a.value, b.value
+
+
+def bwd_mma_occupancy(d: int, n: int, max_pos_emb: int = 512) -> tuple[int, int]:
+    """Resident blocks (of 4 warps) per SM of the bf16 tensor-core K2's pass
+    A, whose band of clipped table rows grows with ``n``, and pass B at head
+    dim ``d``, as the CUDA runtime computes them for the built kernels."""
+    return _bwd_occupancy(build_bwd_mma(), "se_shaw_attention_bwd_mma_occupancy", d, n,
+                          max_pos_emb)
+
+
+def bwd_tf32_occupancy(d: int, n: int, max_pos_emb: int = 512) -> tuple[int, int]:
+    """As :func:`bwd_mma_occupancy`, for the fp32 tensor-core K2."""
+    return _bwd_occupancy(build_bwd_tf32(), "se_shaw_attention_bwd_tf32_occupancy", d, n,
+                          max_pos_emb)
 
 
 def relative_index(n: int, max_pos_emb: int, device=None) -> torch.Tensor:
@@ -263,12 +290,14 @@ def _check(q, k, v, rel_table, max_pos_emb):
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
-def _check_alignment(q, k, v, table):
+def _check_alignment(q, k, v, table, out=None, g=None):
     """The tensor-core instances copy 16-byte chunks of q, k, v and table
     rows: every base pointer 16-byte aligned, batch and sequence strides
-    multiples of 16 bytes (8 bf16 or 4 fp32 elements).  Raises before any
-    launch otherwise."""
-    for name, t in (("q", q), ("k", k), ("v", v), ("rel_table", table)):
+    multiples of 16 bytes (8 bf16 or 4 fp32 elements).  The backward's
+    contiguous ``out`` and ``g``, where given, need aligned base pointers
+    too.  Raises before any launch otherwise."""
+    named = [("q", q), ("k", k), ("v", v), ("rel_table", table), ("out", out), ("g", g)]
+    for name, t in ((name, t) for name, t in named if t is not None):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned (data_ptr % 16 = "
                              f"{t.data_ptr() % 16}), which the {q.dtype} tensor-core "
@@ -386,7 +415,7 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in the table's (summed in fp32 with atomics, so not bit-deterministic
     from run to run).  CPU tensors take the plain version, which needs
     neither ``out`` nor ``lse``."""
-    global bwd_launches, bwd_mma_launches
+    global bwd_launches, bwd_mma_launches, bwd_tf32_launches
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -400,20 +429,16 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must match q, got {tuple(t.shape)} {t.dtype}")
     if lse is None or lse.shape != (b, h, n) or lse.dtype != torch.float32:
         raise ValueError("lse must be the forward's [B, h, n] fp32 log-sum-exp")
-    tensor_core = kernel_instance(q.dtype, d, "backward") == "tensor_core"
+    instance = kernel_instance(q.dtype, d, "backward")
     band_rows = min(_BM + n - 1, 2 * max_pos_emb + 1)
-    # the tensor-core entry point refuses a band that does not fit itself
-    if not tensor_core and band_rows * d * 4 + _STATIC_SMEM_BYTES > _SMEM_BYTES:
+    # the tensor-core entry points refuse a band that does not fit themselves
+    if instance == "cuda_core" and band_rows * d * 4 + _STATIC_SMEM_BYTES > _SMEM_BYTES:
         raise ValueError(f"max_pos_emb {max_pos_emb} at head dim {d} exceeds "
                          f"the backward kernel's shared memory")
     table = rel_table.contiguous()
     out, g, lse = out.contiguous(), g.contiguous(), lse.contiguous()
-    if tensor_core:
-        _check_alignment(q, k, v, table)
-        for name, t in (("out", out), ("g", g)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} is not 16-byte aligned, which the bf16 "
-                                 f"tensor-core kernel needs")
+    if instance != "cuda_core":
+        _check_alignment(q, k, v, table, out, g)
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     dtable = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
@@ -425,12 +450,18 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dtable))
     strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1))
     stream = _native.current_stream(q.device)
-    if tensor_core:
+    if instance == "tensor_core":
         status = build_bwd_mma().se_shaw_attention_bwd_mma(
             *pointers, b, n, h, d, *strides, max_pos_emb, float(scale), groups, band_rows,
             stream)
         _native.check(status, "se_shaw_attention_bwd_mma")
         bwd_mma_launches += 1
+    elif instance == "tensor_core_tf32":
+        status = build_bwd_tf32().se_shaw_attention_bwd_tf32(
+            *pointers, b, n, h, d, *strides, max_pos_emb, float(scale), groups, band_rows,
+            stream)
+        _native.check(status, "se_shaw_attention_bwd_tf32")
+        bwd_tf32_launches += 1
     else:
         status = build_bwd().se_shaw_attention_bwd(
             *pointers, int(q.dtype == torch.bfloat16), b, n, h, d, *strides, max_pos_emb,

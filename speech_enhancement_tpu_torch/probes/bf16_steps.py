@@ -4,14 +4,17 @@ and report where each step's gradient comes from.
 
     python3 speech_enhancement_tpu_torch/probes/bf16_steps.py [--repeats 12] [--root DIR]
 
-``--root`` is the checkout whose ``speech_enhancement_tpu_torch`` and
-``chip_smoke.py`` are run (default: the one this file is in), so that this
-one file also runs an older tree.  Each repeat builds phase 7's state anew
+``--root`` is the checkout whose ``speech_enhancement_tpu_torch`` is run
+(default: the one this file is in), so that this one file also runs an
+older tree; the phase-7 helpers come from the ``chip_smoke.py`` beside this
+file's package.  Each repeat builds phase 7's state anew
 (``TSCNet(64, 201, fused_attention=True)``, ``Discriminator(16)``,
 SGD-Nesterov lr 0.01) and takes phase 7's three bf16 steps of
-``make_fused_gan_train_step`` on its first batch.  Per step it prints the
-losses, the norm of the generator's gradient and its three largest
-parameter gradients, and, at the DSP of the scp losses:
+``make_fused_gan_train_step`` on its first batch.  Per step it prints each
+loss term and ``disc_loss``, the self-correcting weights ``w_c, w_e, w_n``
+and the Gram entries they come from (``chip_smoke.sc_step_text``), the
+norms of the discriminator's gradient and of the generator's with its
+three largest parameter gradients, and, at the DSP of the scp losses:
 
 * ``spec``: the generator's (compressed) output spectrum: largest
   magnitude, largest gradient;
@@ -22,29 +25,36 @@ parameter gradients, and, at the DSP of the scp losses:
   empty bin), largest gradient.
 
 A repeat whose third loss is not below its first, as phase 7 checks, is
-marked DIVERGED.  The last line is a JSON summary.
+marked DIVERGED.  The last line is a JSON summary.  A blow-up that comes
+once in many processes is sought with many processes, each with
+``--repeats 1`` or a few: repeats inside one process have not shown it.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+HERE = Path(__file__).resolve().parents[2]
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--repeats", type=int, default=12)
-    parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2])
+    parser.add_argument("--root", type=Path, default=HERE)
     parser.add_argument("--label", default="")
     args = parser.parse_args()
     sys.path.insert(0, str(args.root.resolve()))
     import numpy as np
     import torch
 
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
     from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
     from speech_enhancement_tpu_torch.train import (
         create_gan_state,
@@ -56,9 +66,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bf16_steps: no CUDA device", file=sys.stderr)
         return 1
-    # as chip_smoke.main sets them
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    cs.full_fp32()  # as chip_smoke.main sets it
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
 
@@ -96,20 +104,27 @@ def main() -> int:
                              generator=torch.Generator().manual_seed(cs.SEED + 1))
         state = create_gan_state(gen_model, disc, "sgd", 0.01, momentum=0.9, weight_decay=0.01)
         grads = cs.read_grads(state.gen_opt, state.gen)
+        disc_grads = cs.read_grads(state.disc_opt, state.disc)
         steps = []
         for i in range(3):
             rec.clear()
-            metrics = {k: float(v) for k, v in step(state, clean, noisy, i).items()}
+            with cs.sc_weight_trace() as sc:
+                raw = step(state, clean, noisy, i)
+            (gram, w), = sc
+            metrics = {k: float(v) for k, v in raw.items()}
             norms = {n: float(g.double().norm()) for n, g in grads.items()}
+            disc_norm = float(np.sqrt(sum(float(g.double().norm()) ** 2
+                                          for g in disc_grads.values())))
             top = sorted(norms, key=norms.get, reverse=True)[:3]
             dsp = {name: (float(v["value"]), float(v["grad"])) for name, v in rec.items()}
             total = float(np.sqrt(sum(x * x for x in norms.values())))
-            steps.append({"loss": metrics["loss"], "grad_norm": total, "dsp": dsp,
-                          "top": {n: norms[n] for n in top}})
-            print(f"{tag}repeat {r} step {i}: loss {metrics['loss']:.6g} (ri "
-                  f"{metrics['loss_ri']:.5g}, mag {metrics['loss_mag']:.5g}, time "
-                  f"{metrics['time_loss']:.5g}, gan {metrics['gan_loss']:.5g}); |grad| "
-                  f"{total:.4g}, largest " + ", ".join(f"{n} {norms[n]:.3g}" for n in top)
+            steps.append({**metrics, "grad_norm": total, "disc_grad_norm": disc_norm,
+                          "weights": [float(x) for x in w],
+                          "gram": [[float(x) for x in row] for row in gram.double().cpu()],
+                          "dsp": dsp, "top": {n: norms[n] for n in top}})
+            print(f"{tag}repeat {r} step {i}: {cs.sc_step_text(raw, gram, w, disc_norm)}; "
+                  f"generator |grad| {total:.4g}, largest "
+                  + ", ".join(f"{n} {norms[n]:.3g}" for n in top)
                   + "; spec max {:.4g} grad {:.3g}; audio max {:.4g} grad {:.3g}; restft "
                   "min {:.3g} grad {:.3g}".format(*dsp["spec"], *dsp["audio"], *dsp["restft"]),
                   flush=True)
@@ -117,7 +132,7 @@ def main() -> int:
         if diverged:
             print(f"{tag}repeat {r} DIVERGED", flush=True)
         summary.append({"diverged": diverged, "steps": steps})
-        del state, gen_model, disc, grads
+        del state, gen_model, disc, grads, disc_grads
     n_div = sum(s["diverged"] for s in summary)
     print(f"{tag}{n_div} of {args.repeats} repeats diverged", flush=True)
     print(json.dumps({"label": args.label, "repeats": summary}))

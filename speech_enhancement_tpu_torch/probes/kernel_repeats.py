@@ -28,7 +28,8 @@ import sys
 from pathlib import Path
 
 # ops/fused_attention.py's launch counters, K1's then K2's
-COUNTERS = ("launches", "mma_launches", "tf32_launches", "bwd_launches", "bwd_mma_launches")
+COUNTERS = ("launches", "mma_launches", "tf32_launches", "bwd_launches", "bwd_mma_launches",
+            "bwd_tf32_launches")
 
 
 def main() -> int:

@@ -43,21 +43,23 @@ def _clipped(offsets, max_pos_emb):
     return offsets.clamp(-max_pos_emb, max_pos_emb) + max_pos_emb
 
 
-def inverse_skew(q, dp, table, max_pos_emb):
+def inverse_skew(q, dp, table, max_pos_emb, tile=TILE):
     """Pass A's bias terms: ``(dq_bias [b, n, h, d], dtable [2P+1, d])``
-    from ``dp`` ``[b, h, n, n]`` through the offset band D'."""
+    from ``dp`` ``[b, h, n, n]`` through the offset band D' of each warp's
+    16 queries and key tile of ``tile`` keys (16 + tile band rows)."""
     b, n, h, d = q.shape
-    nw, nj = -(-n // ROWS), -(-n // TILE)
-    dpp = torch.zeros(b, h, nw * ROWS, nj * TILE)
+    warp_band = ROWS + tile
+    nw, nj = -(-n // ROWS), -(-n // tile)
+    dpp = torch.zeros(b, h, nw * ROWS, nj * tile)
     dpp[..., :n, :n] = dp
-    tiles = dpp.view(b, h, nw, ROWS, nj, TILE).permute(0, 1, 2, 4, 3, 5)
-    il, jl = torch.arange(ROWS)[:, None], torch.arange(TILE)[None, :]
-    cell = (il * WARP_BAND + TILE - 1 + il - jl).reshape(-1)  # D'[i][63 + i - j]
-    band = torch.zeros(b, h, nw, nj, ROWS * WARP_BAND)
-    band[..., cell] = tiles.reshape(b, h, nw, nj, ROWS * TILE)
-    band = band.view(b, h, nw, nj, ROWS, WARP_BAND)
-    offsets = (ROWS * torch.arange(nw)[:, None, None] - TILE * torch.arange(nj)[None, :, None]
-               - (TILE - 1) + torch.arange(WARP_BAND))  # [nw, nj, 80]
+    tiles = dpp.view(b, h, nw, ROWS, nj, tile).permute(0, 1, 2, 4, 3, 5)
+    il, jl = torch.arange(ROWS)[:, None], torch.arange(tile)[None, :]
+    cell = (il * warp_band + tile - 1 + il - jl).reshape(-1)  # D'[i][tile - 1 + i - j]
+    band = torch.zeros(b, h, nw, nj, ROWS * warp_band)
+    band[..., cell] = tiles.reshape(b, h, nw, nj, ROWS * tile)
+    band = band.view(b, h, nw, nj, ROWS, warp_band)
+    offsets = (ROWS * torch.arange(nw)[:, None, None] - tile * torch.arange(nj)[None, :, None]
+               - (tile - 1) + torch.arange(warp_band))  # [nw, nj, warp_band]
     e_band = table[_clipped(offsets, max_pos_emb)]  # [nw, nj, 80, d]
     dq_bias = torch.einsum("bhwjir,wjrd->bwihd", band, e_band).reshape(b, nw * ROWS, h, d)
     qp = torch.zeros(b, nw * ROWS, h, d)
@@ -200,12 +202,12 @@ def test_copy_matches_pallas_backward(d, max_pos_emb):
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 32, "tensor_core"),
     (torch.bfloat16, 4, "cuda_core"), (torch.bfloat16, 8, "cuda_core"),
     (torch.float32, 4, "cuda_core"), (torch.float32, 8, "cuda_core"),
-    (torch.float32, 16, "cuda_core"), (torch.float32, 32, "cuda_core"),
+    (torch.float32, 16, "tensor_core_tf32"), (torch.float32, 32, "tensor_core_tf32"),
 ])
 def test_backward_instance_dispatch(dtype, d, want):
     """fused_shaw_attention_bwd picks its instance by kernel_instance
-    (direction "backward"): bf16 at d 16 and 32 on tensor cores, the rest,
-    fp32 at d 16 and 32 included, on CUDA cores."""
+    (direction "backward"): bf16 at d 16 and 32 on bf16 tensor cores, fp32
+    at d 16 and 32 on tensor cores in 3xTF32, d 4 and 8 on CUDA cores."""
     assert fa.kernel_instance(dtype, d, "backward") == want
 
 
@@ -217,11 +219,11 @@ def test_backward_dispatch_refuses_what_no_kernel_takes(dtype, d):
 
 
 def test_backward_takes_the_plain_version_on_cpu_for_either_instance():
-    """CPU tensors never launch: neither backward counter moves."""
+    """CPU tensors never launch: no backward counter moves."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, table, g = (t.to(dtype) for t in _operands(9, 2, 21, 2, 16, 8))
-        before = (fa.bwd_launches, fa.bwd_mma_launches)
+        before = (fa.bwd_launches, fa.bwd_mma_launches, fa.bwd_tf32_launches)
         got = fa.fused_shaw_attention_bwd(q, k, v, table, None, None, g, 8)
-        assert (fa.bwd_launches, fa.bwd_mma_launches) == before
+        assert (fa.bwd_launches, fa.bwd_mma_launches, fa.bwd_tf32_launches) == before
         for name, a, w in zip(NAMES, got, fa.shaw_attention_bwd_reference(q, k, v, table, g, 8)):
             assert torch.equal(a, w), name

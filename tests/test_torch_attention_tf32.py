@@ -123,16 +123,17 @@ def test_single_tf32_product_breaks_the_bound():
 @pytest.mark.parametrize("dtype,d,direction,want", [
     (torch.float32, 16, "forward", "tensor_core_tf32"),
     (torch.float32, 32, "forward", "tensor_core_tf32"),
-    (torch.float32, 16, "backward", "cuda_core"),
-    (torch.float32, 32, "backward", "cuda_core"),
+    (torch.float32, 16, "backward", "tensor_core_tf32"),
+    (torch.float32, 32, "backward", "tensor_core_tf32"),
     (torch.bfloat16, 16, "forward", "tensor_core"),
     (torch.bfloat16, 32, "backward", "tensor_core"),
     (torch.float32, 8, "forward", "cuda_core"),
     (torch.bfloat16, 4, "backward", "cuda_core"),
 ])
 def test_forward_and_backward_dispatch(dtype, d, direction, want):
-    """Each (dtype, head dim, direction) has one kernel: the fp32 forward at
-    d 16 and 32 runs in 3xTF32, the fp32 backward stays on CUDA cores."""
+    """Each (dtype, head dim, direction) has one kernel: fp32 at d 16 and
+    32 runs in 3xTF32 in both directions (csrc/shaw_attention_tf32.cu and
+    shaw_attention_bwd_tf32.cu), d 4 and 8 on CUDA cores."""
     assert fa.kernel_instance(dtype, d, direction) == want
 
 

@@ -6,7 +6,9 @@ interpret mode).
 
 fp32 bound: relative RMS < 1e-4 per utterance, as for TSCNet alone
 (tests/test_torch_models.py); the JAX side runs with
-matmul_precision=None so that its matmuls are full fp32 too.
+matmul_precision=None so that its matmuls are full fp32 too, except where a
+test holds the two packages' default (matmul_precision="bfloat16"), which
+CPU matmuls of both ignore.
 """
 
 import jax
@@ -103,6 +105,69 @@ def test_buckets_and_wrap_pad_match_jax(length, quantum):
     x = np.arange(37, dtype=np.float32)
     np.testing.assert_array_equal(enhance.wrap_pad(x, length % 97),
                                   jax_enhance.wrap_pad(x, length % 97))
+
+
+def test_default_precision_matches_jax_default(models, utterances):
+    """The port's default Enhancer (matmul_precision="bfloat16") against the
+    JAX default (the same value).  On the CPU both packages leave their
+    matmuls at fp32 under that setting, so this holds the plumbing to the
+    fp32 bound; the card measures the TF32 numerics (chip_smoke.py phase 5)."""
+    flax_model, variables, model = models
+    want = jax_enhance.Enhancer(flax_model, variables, quantum=4000,
+                                fused_stft=True).enhance(utterances, batch_size=2)
+    port = enhance.Enhancer(model, quantum=4000, fused_stft=True, device="cpu")
+    assert port.matmul_precision == "bfloat16"
+    got = port.enhance(utterances, batch_size=2)
+    for g, w in zip(got, want):
+        assert _rel_rms(g, w) < BOUND
+
+
+def _flags():
+    return (torch.backends.cuda.matmul.fp32_precision,
+            torch.backends.cudnn.conv.fp32_precision)
+
+
+@pytest.mark.parametrize("precision,mode", [("bfloat16", "tf32"), ("tensorfloat32", "tf32"),
+                                            ("float32", "ieee"), ("highest", "ieee"),
+                                            (None, "ieee")])
+def test_precision_applies_inside_the_step_and_is_restored(models, utterances, precision, mode):
+    """Each JAX value maps to one torch fp32 precision for CUDA matmuls and
+    cuDNN convolutions, set inside the step and restored after it."""
+    enhancer = enhance.Enhancer(models[2], quantum=4000, matmul_precision=precision,
+                                device="cpu")
+    seen = []
+    step = enhancer._enhance
+
+    def watched(noisy):
+        seen.append(_flags())
+        return step(noisy)
+
+    enhancer._enhance = watched
+    before = _flags()
+    out = enhancer.enhance(utterances[:2], batch_size=2)
+    assert seen == [(mode, mode)]
+    assert _flags() == before
+    assert [len(o) for o in out] == LENGTHS[:2]
+
+
+def test_precision_is_restored_when_the_step_raises(models):
+    enhancer = enhance.Enhancer(models[2], quantum=4000, device="cpu")
+
+    def fails(noisy):
+        assert _flags() == ("tf32", "tf32")
+        raise RuntimeError("step failed")
+
+    enhancer._enhance = fails
+    before = _flags()
+    with pytest.raises(RuntimeError, match="step failed"):
+        enhancer.enhance_batch(np.zeros((1, 4000), np.float32))
+    assert _flags() == before
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fastest", "BFLOAT16"])
+def test_unknown_precision_raises(models, precision):
+    with pytest.raises(ValueError):
+        enhance.Enhancer(models[2], matmul_precision=precision, device="cpu")
 
 
 def test_enhancer_cuda_absent_raises(models):
