@@ -60,7 +60,30 @@ line each (timings beside the card's name and power limit):
    tensor-core instances at B'=808 n=161), K2 (both tensor-core instances
    at B'=808 n=161 and B'=3232 n=321, CUDA-core fp32 at d=8, each against
    the autograd backward of the SDPA yardstick) and K6; peak device memory
-   of a step with and without rematerialization.
+   of a step with and without rematerialization;
+9. the entry points a user runs, on a synthetic corpus in the VoiceBank
+   layout (48 + 6 pairs of 1.5-4 s harmonic "speech" at 0-15 dB SNR, from
+   the seed, in a temporary directory): ``cli.main_gan`` for one epoch of
+   6 steps (batch 8 x 1 s, scp, ``--fused-attention``) in each step mode
+   at bf16 and in two-phase and pipelined at fp32 (finite losses, one
+   discriminator update per generator step with the GAN term, K1 and K2
+   launched), each with its step time (CUDA events, median of steps 2-6)
+   and, in the same run, the device time of steps 2-4 (``torch.profiler``)
+   over their time on the host's clock, the busy share, beside the wait
+   for estimate labels and ``os.cpu_count()``, and the same for the
+   synchronous ``make_fused_gan_train_step`` with all labels in the step;
+   the two-phase loop against ``make_fused_gan_train_step`` step for step
+   at fp32 and lr 1e-3, with the same labels (losses rtol 1e-4, or 3x what
+   three runs of the step part by, the larger); ``--resume auto`` at lr
+   1e-3 from the epoch-1 checkpoint of a run of two epochs, against that
+   run's epoch 2 (the first epoch-2 loss bit for bit; epoch-2 losses 1e-3,
+   all weights and their epoch-2 change 1e-3, and per entry of both models
+   its weights 1e-3 and its epoch-2 change 1e-2);
+   ``cli.inference_gan`` on ``model_best`` in bf16 and fp32 and
+   ``--validate-epochs`` (six finite metrics, K1, K4, K5 launched).  The
+   CLI runs that are timed and inference run at torch's fp32 precision
+   flags as the process started (what ``python -m`` gives a user), the
+   two comparisons in full fp32.
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -74,13 +97,16 @@ products count three TF32 products each.  ``library_ms`` is one
 PyTorch call computing the same function, timed here and used nowhere in
 the port.
 
-The line before the last is the kernels' JSON record; the last is
+The line before the last is the kernels' JSON record (``launches``: the
+main paths' counts: phases 4 and 7, each zeroed before its path, and
+phase 9's CLI calls, each counted from before to after it; with
+``launches_by_path``), after phase 9's timings as JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
 last line; with no CUDA device it exits 1 at once.
 
 fp32 comparisons run with TF32 off for matmuls and cuDNN convolutions
 (torch's ``fp32_precision`` flags, ``"ieee"``), so that the plain path is
-full fp32.
+full fp32; phase 9's timed runs restore the flags a process starts with.
 """
 
 from __future__ import annotations
@@ -793,6 +819,380 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
             "cuda_core_bwd_check_launches": cuda_core_bwd_launches}
 
 
+def write_corpus(root, rng, n_train: int = 48, n_test: int = 6) -> str:
+    """A synthetic corpus in the VoiceBank layout under ``root``: pairs of
+    1.5-4 s harmonic, amplitude-modulated "speech" (a gliding f0 of
+    100-250 Hz with six harmonics, 2.5-5 Hz syllable envelope) and the same
+    with white noise at 0-15 dB SNR, as tests/test_cli.py builds its pairs,
+    but longer; and an overlay on ``config/scp.yaml`` that points ``DATA``
+    there with batch 8.  Returns the overlay's path."""
+    import os
+
+    from speech_enhancement_tpu_torch.data import save_wav
+
+    dirs = {}
+    for split, n in (("train", n_train), ("test", n_test)):
+        clean_dir, noisy_dir = (os.path.join(root, f"{kind}_{split}")
+                                for kind in ("clean", "noisy"))
+        os.makedirs(clean_dir)
+        os.makedirs(noisy_dir)
+        for i in range(n):
+            length = int(rng.integers(24000, 64001))
+            t = np.arange(length) / SR
+            f0 = rng.uniform(100.0, 250.0) * (
+                1.0 + 0.05 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0) * t))
+            phase = 2 * np.pi * np.cumsum(f0) / SR
+            voiced = sum(np.sin(k * phase) / k for k in range(1, 7))
+            syllables = 2 * np.pi * rng.uniform(2.5, 5.0) * t + rng.uniform(0, 6.3)
+            envelope = 0.5 + 0.5 * np.sin(syllables)
+            clean = 0.3 * envelope * voiced / np.abs(voiced).max()
+            noise = rng.standard_normal(length)
+            snr_db = rng.uniform(0.0, 15.0)
+            noise *= np.sqrt(np.mean(clean ** 2) / (np.mean(noise ** 2) * 10 ** (snr_db / 10)))
+            save_wav(os.path.join(clean_dir, f"p{i:03d}.wav"), clean.astype(np.float32))
+            save_wav(os.path.join(noisy_dir, f"p{i:03d}.wav"), (clean + noise).astype(np.float32))
+        dirs[split] = (clean_dir, noisy_dir)
+    import speech_enhancement_tpu_torch.config as config_pkg
+
+    overlay = os.path.join(root, "corpus.yaml")
+    with open(overlay, "w") as f:
+        f.write(f"BASE: ['{os.path.join(os.path.dirname(config_pkg.__file__), 'scp.yaml')}']\n"
+                f"DATA:\n  TRAIN_CLEAN_DIR: '{dirs['train'][0]}'\n"
+                f"  TRAIN_NOISY_DIR: '{dirs['train'][1]}'\n"
+                f"  TEST_CLEAN_DIR: '{dirs['test'][0]}'\n"
+                f"  TEST_NOISY_DIR: '{dirs['test'][1]}'\n  BATCH_SIZE: 8\n")
+    return overlay
+
+
+@contextlib.contextmanager
+def fp32_precision(matmul: str, conv: str):
+    """torch's fp32 matmul and cuDNN convolution precision flags set to
+    ``matmul`` and ``conv`` inside, and restored after."""
+    saved = (torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.cudnn.conv.fp32_precision)
+    torch.backends.cuda.matmul.fp32_precision = matmul
+    torch.backends.cudnn.conv.fp32_precision = conv
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.fp32_precision,
+         torch.backends.cudnn.conv.fp32_precision) = saved
+
+
+class StepClock:
+    """An ``on_step(idx)`` hook: a CUDA event after every step, and
+    ``torch.profiler`` (CUDA activity) over steps 2-4 of the same run.
+    After step 1 the card is synchronized and the profiler started; after
+    step 4 the card is synchronized, the host's time since the start read
+    and the profiler stopped."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.events: list = []
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.t_start = self.window_s = None
+
+    def __call__(self, idx: int) -> bool:
+        self.events.append(torch.cuda.Event(enable_timing=True))
+        self.events[-1].record()
+        if idx == 1:
+            torch.cuda.synchronize()
+            self.prof.start()
+            self.t_start = time.perf_counter()
+        elif idx == 4:
+            torch.cuda.synchronize()
+            self.window_s = time.perf_counter() - self.t_start
+            self.prof.stop()
+        return False
+
+    def timings(self, label_wait_ms) -> dict:
+        """The step time (median of the intervals between the events: steps
+        2-6 of six), the profiled steps' device time and host time per step,
+        and their ratio, the busy share."""
+        steps_ms = [a.elapsed_time(b) for a, b in zip(self.events, self.events[1:])]
+        device_ms = sum(e.self_device_time_total for e in self.prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 3 / 1e3
+        profiled_ms = self.window_s / 3 * 1e3
+        return {"step_ms": statistics.median(steps_ms), "steps_ms": steps_ms,
+                "device_ms": device_ms, "profiled_step_ms": profiled_ms,
+                "busy": device_ms / profiled_ms, "label_wait_ms": label_wait_ms}
+
+
+@contextlib.contextmanager
+def clocked_epochs():
+    """Each epoch of ``cli.main_gan`` inside runs a new :class:`StepClock`
+    after the loop's own ``on_step`` (``train.run_gan_epoch`` wrapped);
+    the list of the epochs' clocks is yielded."""
+    from speech_enhancement_tpu_torch.cli import main_gan
+
+    clocks: list = []
+    original = main_gan.run_gan_epoch
+
+    def clocked(state, batches, *, on_step, **kw):
+        clock = StepClock()
+        clocks.append(clock)
+
+        def on_step_clocked(idx, stats):
+            stop = on_step(idx, stats)
+            clock(idx)
+            return stop
+
+        return original(state, batches, on_step=on_step_clocked, **kw)
+
+    main_gan.run_gan_epoch = clocked
+    try:
+        yield clocks
+    finally:
+        main_gan.run_gan_epoch = original
+
+
+def entry_point_phase(card: str, user_precision: tuple) -> dict:
+    """Phase 9: ``cli.main_gan`` in every step mode and ``cli.inference_gan``
+    on its checkpoints, on a synthetic corpus, at full width; the loop
+    against the synchronous step, and resume against a straight run.  The
+    timed CLI runs, the synchronous yardstick and inference run at torch's
+    precision flags as the process found them (``user_precision``: what a
+    user's ``python -m`` gets); the two comparisons in full fp32, as every
+    other comparison here.  Returns the launch counts of the CLI calls
+    alone, and the timings."""
+    import os
+    import shutil
+    import tempfile
+
+    from speech_enhancement_tpu_torch.cli import inference_gan, main_gan
+    from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset
+    from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+    from speech_enhancement_tpu_torch.train import (
+        create_gan_state,
+        gan,
+        l2_loss,
+        make_fused_gan_train_step,
+        run_gan_epoch,
+    )
+    from speech_enhancement_tpu_torch.train.loop import step_seed
+    from speech_enhancement_tpu_torch.utils import load_variables
+
+    t_phase = time.perf_counter()
+    counters = {"K1 tensor-core": (fa, "mma_launches"), "K1 fp32 tensor-core": (fa, "tf32_launches"),
+                "K2 tensor-core": (fa, "bwd_mma_launches"),
+                "K2 fp32 tensor-core": (fa, "bwd_tf32_launches"), "K4": (fs, "stft_launches"),
+                "K5": (fs, "istft_launches")}
+    launches = dict.fromkeys(counters, 0)  # the CLI calls' own, summed
+    last: dict = {}  # the latest CLI call's
+
+    def run_cli(entry, args):
+        """``entry(args)``; its launches, also when it raises, are put in
+        ``last`` and added to ``launches``."""
+        before = {k: getattr(module, name) for k, (module, name) in counters.items()}
+        try:
+            return entry(args)
+        finally:
+            for k, (module, name) in counters.items():
+                last[k] = getattr(module, name) - before[k]
+                launches[k] += last[k]
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_")
+    root = tmp.name
+    overlay = write_corpus(root, np.random.default_rng(SEED))
+    print(f"[9 entry points] synthetic corpus of 48 + 6 pairs, 1.5-4 s, 0-15 dB SNR, batch 8 "
+          f"x 1 s crops (6 steps an epoch); os.cpu_count() {os.cpu_count()}; timed runs and "
+          f"inference at torch's fp32 flags as found (matmul {user_precision[0]!r}, cuDNN conv "
+          f"{user_precision[1]!r}), the comparisons at 'ieee'; card {card}", flush=True)
+
+    def cli_args(out, *extra):
+        return ["-a", "scp", "--cfg", overlay, "--output", os.path.join(root, out), "--seed",
+                "0", "--fused-attention", *extra]
+
+    # the epoch-0 host batches, for the synchronous step and the comparison
+    ds = VoicebankDataset(os.path.join(root, "clean_train"), os.path.join(root, "noisy_train"))
+    loader = DataLoader(ds, 8, Collator(precompute_labels=True), seed=0)
+    loader.set_epoch(0)
+    batches = list(loader)
+
+    def new_state(lr=0.01):
+        gen_model = TSCNet(64, 201, fused_attention=True, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED))
+        disc = Discriminator(16, device="cuda", generator=torch.Generator().manual_seed(SEED + 1))
+        return create_gan_state(gen_model, disc, "sgd", lr, momentum=0.9, weight_decay=0.01)
+
+    # one epoch of 6 steps in every step mode, bf16, and two of them in
+    # fp32, each clocked and profiled in its own run; then the synchronous
+    # step with all three label sets inside, as the yardstick
+    timings = {}
+    with fp32_precision(*user_precision):
+        for mode, precision in (("two-phase", "bf16"), ("async", "bf16"),
+                                ("pipelined", "bf16"), ("fused", "bf16"),
+                                ("two-phase", "fp32"), ("pipelined", "fp32")):
+            t0 = time.perf_counter()
+            with clocked_epochs() as clocks:
+                (record,) = run_cli(main_gan.main, cli_args(
+                    f"{mode}_{precision}", "--epochs", "1", "--step-mode", mode,
+                    "--precision", precision))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            stats = record["train"]
+            kernels = (("K1 tensor-core", "K2 tensor-core") if precision == "bf16"
+                       else ("K1 fp32 tensor-core", "K2 fp32 tensor-core"))
+            losses = (stats.gen_losses + stats.disc_losses
+                      + [record["valid_gen"], record["valid_disc"]])
+            check(len(stats.gen_losses) == 6 and all(math.isfinite(x) for x in losses)
+                  and stats.gan_steps == len(stats.disc_losses) == 6
+                  and all(last[k] > 0 for k in kernels),
+                  f"cli.main_gan --step-mode {mode} --precision {precision}: 6 steps, every "
+                  f"loss finite, {len(stats.disc_losses)} discriminator updates for "
+                  f"{stats.gan_steps} generator steps with the GAN term; launches {last}")
+            timings[mode, precision] = {
+                **clocks[0].timings(1e3 * stats.label_wait / len(stats.gen_losses)),
+                "run_s": run_s}
+            print(f"    info {mode} {precision}: generator losses "
+                  f"{', '.join(f'{x:.4f}' for x in stats.gen_losses)}; discriminator losses "
+                  f"{', '.join(f'{x:.4f}' for x in stats.disc_losses)}; valid gen "
+                  f"{record['valid_gen']:.4f} disc {record['valid_disc']:.4f}; run "
+                  f"{run_s:.2f} s", flush=True)
+
+        state, clock = new_state(), StepClock()
+        sync = make_fused_gan_train_step(criterion=l2_loss, compute_dtype=torch.bfloat16)
+        for i, batch in enumerate(batches):
+            clean, noisy = (torch.from_numpy(a).pin_memory().cuda(non_blocking=True)
+                            for a in batch[:2])
+            float(sync(state, clean, noisy, i)["loss"])
+            clock(i)
+        timings["synchronous", "bf16"] = clock.timings(None)
+        del state, clock
+        torch.cuda.empty_cache()
+
+    # the two-phase loop against make_fused_gan_train_step, fp32, step for
+    # step, at lr 1e-3 (the CPU tests' rate).  The step labels its estimate
+    # against the normalized audio, the loop against the batch's audio, as
+    # in the JAX package (PESQ level-aligns both, up to rounding): here the
+    # step's estimate is labelled against the batch's audio too, so that
+    # both sides get the same labels.  Three runs of the step give the
+    # card's own spread (K2's fp32 atomics, cuDNN's algorithm choice), the
+    # largest gap between two of them.
+    looped = run_gan_epoch(new_state(1e-3), batches, epoch=0, seed=0, criterion=l2_loss,
+                           step_mode="two-phase")
+    engine_labels = gan.host_pesq_labels
+
+    def stepped_run():
+        state, step, out = new_state(1e-3), make_fused_gan_train_step(criterion=l2_loss), []
+        for i, batch in enumerate(batches):
+            clean, noisy, q_clean, q_noisy = (torch.from_numpy(a).cuda() for a in batch)
+            gan.host_pesq_labels = lambda ref, est, sr=SR: engine_labels(
+                torch.from_numpy(batch.audio[:, :est.shape[1]]), est, sr)
+            try:
+                metrics = step(state, clean, noisy, step_seed(0, 0, i), q_clean, q_noisy)
+            finally:
+                gan.host_pesq_labels = engine_labels
+            out.append({k: float(v) for k, v in metrics.items()})
+        return out
+
+    stepped = [stepped_run() for _ in range(3)]
+
+    def worst(got, want):
+        return max(abs(a / b - 1) for a, b in zip(got, want))
+
+    for name, key, got in (("generator", "loss", looped.gen_losses),
+                           ("discriminator", "disc_loss", looped.disc_losses)):
+        runs = [[m[key] for m in run] for run in stepped]
+        gap = worst(got, runs[0])
+        spread = max(worst(runs[i], runs[j]) for i, j in ((1, 0), (2, 0), (2, 1)))
+        bound = max(1e-4, 3 * spread)
+        print(f"    info {name} losses by step, the loop / the step's second and third runs "
+              f"against its first: "
+              + ", ".join(f"{abs(a / w - 1):.1e}/{abs(b / w - 1):.1e}/{abs(c / w - 1):.1e}"
+                          for a, w, b, c in zip(got, *runs)), flush=True)
+        check(len(got) == 6 and gap <= bound,
+              f"fp32 two-phase loop vs make_fused_gan_train_step, 6 steps at lr 1e-3, same "
+              f"batches, weights and labels: {name} losses within rtol {gap:.2e} (bound "
+              f"{bound:.2e}: 1e-4, or 3x the {spread:.2e} that three runs of the step part "
+              f"by, the larger)")
+    torch.cuda.empty_cache()
+
+    # resume: 2 epochs straight through, then that run's epoch-1 checkpoint
+    # alone in a new output directory, resumed with --resume auto for epoch
+    # 2 (as a run killed after its first epoch is; fp32, pipelined, lr 1e-3
+    # as above).  Both epoch 2s start from the same bits, so the first
+    # epoch-2 loss (a forward pass: no atomics) must be equal; what follows
+    # parts only by the card's nondeterminism within epoch 2 (K2's fp32
+    # atomics, cuDNN's algorithm choice; the CPU test holds resume
+    # bit-exact).
+    _, straight = run_cli(main_gan.main, cli_args("straight", "--epochs", "2", "--lr", "1e-3"))
+    first_epoch = os.path.join("scp", "default", "checkpoint_0000")
+    shutil.copytree(os.path.join(root, "straight", first_epoch),
+                    os.path.join(root, "resumed", first_epoch))
+    (resumed,) = run_cli(main_gan.main, cli_args("resumed", "--epochs", "2", "--lr", "1e-3",
+                                                 "--resume", "auto"))
+    (ref0, ref1), (got0, got1) = (
+        [load_variables(os.path.join(root, run, "scp", "default", f"checkpoint_{e:04d}"))
+         for e in (0, 1)] for run in ("straight", "resumed"))
+    # per floating-point entry of both models: the relative RMS of the
+    # weights after epoch 2, and of their change over epoch 2 (checkpoint 1
+    # less checkpoint 0) over the straight run's change or 100 fp32 steps of
+    # the entry's RMS, the larger (the rule of tests/test_torch_loop_jax.py)
+    floor_steps, per, flat = 100 * float(np.finfo(np.float32).eps), {}, ([], [], [], [])
+    for m in ref1:
+        for k, want in ref1[m].items():
+            if not want.is_floating_point() or not want.abs().max() > 0:
+                continue
+            want, start, got, got_start = (
+                t.double() for t in (want, ref0[m][k], got1[m][k], got0[m][k]))
+            d_want, d_got = want - start, got - got_start
+            scale = max(float(d_want.pow(2).mean().sqrt()),
+                        floor_steps * float(want.pow(2).mean().sqrt()))
+            per[f"{m}.{k}"] = (rel_rms_t(got, want),
+                               float((d_got - d_want).pow(2).mean().sqrt()) / scale)
+            for store, t in zip(flat, (got, want, d_got, d_want)):
+                store.append(t.reshape(-1))
+    values, changes = (rel_rms_t(torch.cat(a), torch.cat(b))
+                       for a, b in (flat[:2], flat[2:]))
+    got_losses, want_losses = resumed["train"].gen_losses, straight["train"].gen_losses
+    by_step = [abs(a / b - 1) for a, b in zip(got_losses, want_losses)]
+    worst_values, worst_changes = (max(per, key=lambda n: per[n][i]) for i in (0, 1))
+    check(got_losses[0] == want_losses[0],
+          f"--resume auto: the first epoch-2 generator loss equals the straight run's bit "
+          f"for bit ({got_losses[0]!r}, {want_losses[0]!r})")
+    check(len(by_step) == 6 and max(by_step) <= 1e-3 and values <= 1e-3 and changes <= 1e-3
+          and per[worst_values][0] <= 1e-3 and per[worst_changes][1] <= 1e-2,
+          f"--resume auto from epoch 1's checkpoint vs 2 epochs straight (fp32, pipelined, lr "
+          f"1e-3): epoch-2 generator losses within rtol {max(by_step):.2e} (bound 1e-3; by "
+          f"step {', '.join(f'{x:.1e}' for x in by_step)}); all weights relative RMS "
+          f"{values:.2e}, their epoch-2 change {changes:.2e} (bounds 1e-3); each of {len(per)} "
+          f"entries: weights within {per[worst_values][0]:.2e} ({worst_values}; bound 1e-3), "
+          f"epoch-2 change within {per[worst_changes][1]:.2e} ({worst_changes}; bound 1e-2)")
+
+    # inference on model_best, bf16 and fp32, and the epoch sweep
+    run_dir = os.path.join(root, "straight", "scp", "default")
+    with fp32_precision(*user_precision):
+        for extra in (["--precision", "bf16"], ["--precision", "fp32"], ["--validate-epochs"]):
+            sweep = extra == ["--validate-epochs"]
+            result = run_cli(inference_gan.main, [
+                "--cfg", overlay, "-m", run_dir if sweep else os.path.join(run_dir, "model_best"),
+                "-o", os.path.join(root, "enhanced"), *extra])
+            results = result if sweep else [(None, result)]
+            k1 = last["K1 tensor-core"] if "bf16" in extra else last["K1 fp32 tensor-core"]
+            check(all(np.isfinite(m).all() and len(m) == 6 for _, m in results) and k1 > 0
+                  and last["K4"] > 0 and last["K5"] > 0 and len(results) == (2 if sweep else 1),
+                  f"cli.inference_gan {' '.join(extra)}: six finite metrics "
+                  f"{'; '.join(', '.join(f'{x:.3f}' for x in m) for _, m in results)}; "
+                  f"launches K1 {k1}, K4 {last['K4']}, K5 {last['K5']}")
+
+    for (mode, precision), t in timings.items():
+        wait = ("labels inside the step" if t["label_wait_ms"] is None
+                else f"label wait {t['label_wait_ms']:.3f} ms a step")
+        print(f"    {mode} {precision} step: {t['step_ms']:.3f} ms (median of steps 2-6: "
+              f"{', '.join(f'{x:.1f}' for x in t['steps_ms'])}); steps 2-4 under the profiler "
+              f"{t['profiled_step_ms']:.3f} ms a step, of which device {t['device_ms']:.3f} ms: "
+              f"busy share {t['busy']:.3f}; {wait}; os.cpu_count() {os.cpu_count()} ({card})",
+              flush=True)
+    tmp.cleanup()
+    print(f"    phase 9 in {time.perf_counter() - t_phase:.1f} s; launches of the CLI calls "
+          f"{launches}", flush=True)
+    return {"launches": launches, "timings": {f"{m} {p}": t for (m, p), t in timings.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -806,6 +1206,10 @@ def main() -> int:
     from speech_enhancement_tpu_torch.ops import fused_relayout as fr
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
 
+    # torch's precision flags as a user's process starts with them, for the
+    # entry points' timed runs
+    user_precision = (torch.backends.cuda.matmul.fp32_precision,
+                      torch.backends.cudnn.conv.fp32_precision)
     full_fp32()
 
     # 1. device
@@ -1162,25 +1566,34 @@ def main() -> int:
 
     # 6-8. the training path
     train = training_phases(card, gen)
+    # 9. the entry points a user runs
+    entry = entry_point_phase(card, user_precision)
     print(f"[done] {time.perf_counter() - started:.1f} s, build included", flush=True)
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)
         return 1
     pkg = "speech_enhancement_tpu_torch"
-    tl = train["launches"]
+    tl, el = train["launches"], entry["launches"]
+
+    def by_path(serving, training, entry_points):
+        return {"launches": serving + training + entry_points,
+                "launches_by_path": {"serving (phase 4)": serving, "training (phase 7)": training,
+                                     "entry points (phase 9)": entry_points}}
+
     rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
     rows["K1tf32"]["n161"] = train["rows"]["K1tf32_n161"]
     kernels = [
         {"name": "shaw_attention_fwd_tensor_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_mma.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         "launches": launches["K1 tensor-core"] + tl["K1 tensor-core"],
+         **by_path(launches["K1 tensor-core"], tl["K1 tensor-core"], el["K1 tensor-core"]),
          "max_abs_err": errs["K1mma"], **rows["K1mma"]},
         {"name": "shaw_attention_fwd_tf32", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_tf32.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         "launches": launches["K1 fp32 tensor-core"] + tl["K1 fp32 tensor-core"],
+         **by_path(launches["K1 fp32 tensor-core"], tl["K1 fp32 tensor-core"],
+                   el["K1 fp32 tensor-core"]),
          "max_abs_err": errs["K1tf32"], **rows["K1tf32"]},
         {"name": "shaw_attention_fwd_cuda_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention.cu",
@@ -1192,12 +1605,14 @@ def main() -> int:
         {"name": "shaw_attention_bwd_tensor_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd_mma.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         "launches": tl["K2 tensor-core"], "max_abs_err": train["errs"]["K2mma"],
+         **by_path(0, tl["K2 tensor-core"], el["K2 tensor-core"]),
+         "max_abs_err": train["errs"]["K2mma"],
          **train["rows"]["K2mma"]},
         {"name": "shaw_attention_bwd_tf32", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd_tf32.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         "launches": tl["K2 fp32 tensor-core"], "max_abs_err": train["errs"]["K2tf32"],
+         **by_path(0, tl["K2 fp32 tensor-core"], el["K2 fp32 tensor-core"]),
+         "max_abs_err": train["errs"]["K2tf32"],
          **train["rows"]["K2tf32"]},
         {"name": "shaw_attention_bwd_cuda_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd.cu",
@@ -1208,14 +1623,15 @@ def main() -> int:
          "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
-         "launches": launches["K4"], "max_abs_err": errs["K4"], **rows["K4"]},
+         **by_path(launches["K4"], 0, el["K4"]), "max_abs_err": errs["K4"], **rows["K4"]},
         {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
-         "launches": launches["K5"], "max_abs_err": errs["K5"], **rows["K5"]},
+         **by_path(launches["K5"], 0, el["K5"]), "max_abs_err": errs["K5"], **rows["K5"]},
         {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
          "launches": tl["K6"], "max_abs_err": train["errs"]["K6"], **train["rows"]["K6"]},
     ]
+    print(json.dumps({"entry_point_timings": entry["timings"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -10,16 +10,23 @@ Layers (bottom-up):
   csrc/      CUDA C++ kernels (Shaw attention forward and backward, STFT,
              iSTFT, axis swap) and the C++ PESQ engine, built at first use
   ops/       STFT/iSTFT DSP, kernel wrappers with their plain PyTorch versions
-  metrics/   PESQ (the native engine's ctypes binding)
+  metrics/   PESQ (the native engine's ctypes binding) and the composite
+             evaluation metrics (CSIG, CBAK, COVL, SSNR, STOI)
   models/    TSCNet (CMGAN generator) and the metric discriminator as NCHW
              ``nn.Module``s
-  train/     criteria, optimizers, GAN train state and steps (SCP-GAN/CMGAN)
-  utils/     JAX-variable -> state_dict conversion (numpy only)
+  train/     criteria, optimizers, GAN train state and steps (SCP-GAN/CMGAN),
+             and the training epoch with its step modes
+  data/      wav IO, the VoiceBank dataset, collator and threaded loader
+  config/    the configuration tree and its overlays (read without PyYAML)
+  utils/     checkpoints, logging, the preemption guard, JAX-variable ->
+             state_dict conversion (numpy only), device selection
   enhance.py batched, length-bucketed enhancement serving
+  cli/       the training and inference entry points (main_gan,
+             inference_gan)
 
 Importing the package touches no CUDA: kernels are compiled and loaded
 by the first wrapper call that receives a CUDA tensor.  Entry points run
-on ``cuda`` unless given ``device="cpu"``.  Nothing of the JAX package
+on ``cuda`` unless given ``device="cpu"`` (the CLIs: ``--device cpu``).  Nothing of the JAX package
 is imported.
 """
 

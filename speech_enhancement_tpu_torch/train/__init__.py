@@ -1,5 +1,6 @@
-"""GAN training: criteria, optimizers and schedule, train state, and the
-generator / discriminator / eval steps."""
+"""GAN training: criteria, optimizers and schedule, train state, the
+generator / discriminator / eval steps, and the epoch loop with its step
+modes."""
 
 from speech_enhancement_tpu_torch.train.criterion import build_criterion, l1_loss, l2_loss
 from speech_enhancement_tpu_torch.train.gan import (
@@ -8,8 +9,10 @@ from speech_enhancement_tpu_torch.train.gan import (
     gan_eval_step,
     gan_generator_step,
     make_fused_gan_train_step,
+    phase_seeds,
     self_correcting_weights,
 )
+from speech_enhancement_tpu_torch.train.loop import DISC_LAG, EpochStats, run_gan_epoch
 from speech_enhancement_tpu_torch.train.optim import (
     Optimizer,
     build_optimizer,
@@ -18,6 +21,8 @@ from speech_enhancement_tpu_torch.train.optim import (
 from speech_enhancement_tpu_torch.train.state import GanTrainState, create_gan_state
 
 __all__ = [
+    "DISC_LAG",
+    "EpochStats",
     "GanTrainState",
     "GenAux",
     "Optimizer",
@@ -31,5 +36,7 @@ __all__ = [
     "l1_loss",
     "l2_loss",
     "make_fused_gan_train_step",
+    "phase_seeds",
+    "run_gan_epoch",
     "self_correcting_weights",
 ]

@@ -251,6 +251,12 @@ def host_pesq_labels(clean: torch.Tensor, other: torch.Tensor,
     return torch.from_numpy(labels).to(other.device)
 
 
+def phase_seeds(seed: int) -> tuple[int, int]:
+    """The generator's and the discriminator's seeds of one step's seed."""
+    seed_gen, seed_disc = np.random.SeedSequence(seed).generate_state(2)
+    return int(seed_gen), int(seed_disc)
+
+
 def make_fused_gan_train_step(*, criterion: Callable, arch: str = "scp",
                               comp_type: str = "pow", n_fft: int = 400, hop: int = 100,
                               gan_active: bool = True,
@@ -264,11 +270,12 @@ def make_fused_gan_train_step(*, criterion: Callable, arch: str = "scp",
     -> metrics``.  ``q_clean`` / ``q_noisy`` are the normalized labels of
     clean and noisy against clean, which a data collator can precompute;
     when omitted they are computed here.  The generator and discriminator
-    phases draw their dropout from two seeds derived from ``seed``."""
+    phases draw their dropout from the two seeds :func:`phase_seeds` derives
+    from ``seed``."""
 
     def step(state: GanTrainState, clean: torch.Tensor, noisy: torch.Tensor, seed: int,
              q_clean: torch.Tensor | None = None, q_noisy: torch.Tensor | None = None):
-        seed_gen, seed_disc = (int(s) for s in np.random.SeedSequence(seed).generate_state(2))
+        seed_gen, seed_disc = phase_seeds(seed)
         aux = gan_generator_step(state, clean, noisy, seed_gen, criterion=criterion,
                                  arch=arch, comp_type=comp_type, n_fft=n_fft, hop=hop,
                                  gan_active=gan_active, loss_weights=loss_weights,

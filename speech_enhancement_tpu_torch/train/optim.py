@@ -161,6 +161,14 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The rule's state (momentum buffers, moments) and the update count."""
+        return {"rule": self.rule.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.rule.load_state_dict(state["rule"])
+        self.count = int(state["count"])
+
 
 @torch.no_grad()
 def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:

@@ -3,7 +3,8 @@
 A plain container: the generator and discriminator modules, their
 optimizers (each carrying its learning-rate schedule and update count),
 step counters, ``best_loss`` and ``epoch``.  The train steps update the
-modules and optimizers in place.
+modules and optimizers in place; ``state_dict`` / ``load_state_dict``
+carry all of it through a checkpoint.
 """
 
 from __future__ import annotations
@@ -25,6 +26,27 @@ class GanTrainState:
     disc_step: int = 0
     best_loss: float = 1e8
     epoch: int = 0
+
+    def variables(self) -> dict:
+        """The inference-ready weights: both models' ``state_dict``s."""
+        return {"gen": self.gen.state_dict(), "disc": self.disc.state_dict()}
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: both models, both optimizers, the
+        step counters, ``best_loss`` and ``epoch``."""
+        return {**self.variables(), "gen_opt": self.gen_opt.state_dict(),
+                "disc_opt": self.disc_opt.state_dict(), "gen_step": self.gen_step,
+                "disc_step": self.disc_step, "best_loss": self.best_loss, "epoch": self.epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output in place (strict for the
+        models)."""
+        self.gen.load_state_dict(state["gen"])
+        self.disc.load_state_dict(state["disc"])
+        self.gen_opt.load_state_dict(state["gen_opt"])
+        self.disc_opt.load_state_dict(state["disc_opt"])
+        self.gen_step, self.disc_step = int(state["gen_step"]), int(state["disc_step"])
+        self.best_loss, self.epoch = float(state["best_loss"]), int(state["epoch"])
 
 
 def create_gan_state(gen_model: nn.Module, disc_model: nn.Module,
