@@ -83,7 +83,30 @@ line each (timings beside the card's name and power limit):
    ``--validate-epochs`` (six finite metrics, K1, K4, K5 launched).  The
    CLI runs that are timed and inference run at torch's fp32 precision
    flags as the process started (what ``python -m`` gives a user), the
-   two comparisons in full fp32.
+   two comparisons in full fp32;
+10. the diffusion families at full width (``DiffuSE``: 64 channels, 30
+   layers, GroupNorm, n_specs 201, hop 100, 50 steps, its zero-initialized
+   output conv given seeded weights; ``DiffusionTSCNet(64, 201, 50)``), in
+   full fp32: one train step of each at batch 8 x 1 s on the card against
+   the same step on the CPU (the same weights and draws, dropout off; loss
+   rtol 1e-4, all gradients relative RMS 1e-3, or 3x the card's fp32
+   floor, its distance from the same step in float64, the larger), then
+   5 bf16
+   (``compute_dtype``) steps of each (finite losses) and 3 profiled ones
+   (busy share); ``sample_tsc`` over the fast 6-step and the full 50-step
+   schedules and ``sample_waveform`` over the fast one at batch 8 x 2 s,
+   kernel route (K4, K5) against plain route (relative RMS 1e-4 for the
+   fast schedules; for 50 steps 3x the card's own spread, two plain runs
+   and one with noise of K4's and K5's measured size on every STFT and
+   iSTFT output, at least 1e-4), with K4's and
+   K5's launches per call checked (1 + steps and steps); each sampler's
+   reverse step (CUDA events) and K4's and K5's device time inside
+   ``sample_tsc``'s steps (``torch.profiler``); ``cli.main_diffuse`` for
+   one epoch of each arch and ``cli.inference_diffuse --fast
+   --validate-epochs`` on its checkpoints, on a corpus as phase 9's (six
+   finite metrics); ``cli.convert_checkpoint`` on reference-layout
+   DiffuSE, diffusion-TSCNet and GAN files of the phase's weights (the
+   converted model's outputs equal the source's bit for bit).
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -98,9 +121,11 @@ PyTorch call computing the same function, timed here and used nowhere in
 the port.
 
 The line before the last is the kernels' JSON record (``launches``: the
-main paths' counts: phases 4 and 7, each zeroed before its path, and
-phase 9's CLI calls, each counted from before to after it; with
-``launches_by_path``), after phase 9's timings as JSON; the last is
+main paths' counts: phases 4 and 7, each zeroed before its path, phase
+9's CLI calls, each counted from before to after it, and phase 10's
+kernel-route sampler runs and ``inference_diffuse`` calls; with
+``launches_by_path``), after phase 9's and phase 10's timings as JSON;
+the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
 last line; with no CUDA device it exits 1 at once.
 
@@ -1193,6 +1218,352 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     return {"launches": launches, "timings": {f"{m} {p}": t for (m, p), t in timings.items()}}
 
 
+FAMILIES = ("diffuse", "tsc-diffuse")
+
+
+def diffusion_models(device: str) -> dict:
+    """Full-width ``DiffuSE`` (64 channels, 30 layers, GroupNorm, n_specs
+    201, hop 100, 50 steps) and ``DiffusionTSCNet(64, 201, 50)`` from
+    seeds.  DiffuSE's output conv starts at zero; it gets seeded weights of
+    RMS 0.01 here, so that the network's output and every gradient are not
+    zero."""
+    from speech_enhancement_tpu_torch.models import DiffuSE, DiffusionTSCNet
+
+    diffuse = DiffuSE(device=device, generator=torch.Generator().manual_seed(SEED + 10))
+    with torch.no_grad():
+        w = torch.randn(diffuse.output_projection.weight.shape,
+                        generator=torch.Generator().manual_seed(SEED + 11))
+        diffuse.output_projection.weight.copy_(0.01 * w)
+    return {"diffuse": diffuse,
+            "tsc-diffuse": DiffusionTSCNet(64, 201, 50, device=device,
+                                           generator=torch.Generator().manual_seed(SEED + 12))}
+
+
+def no_dropout(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def profiled(fn) -> tuple:
+    """(result of ``fn()``, the device time of its CUDA kernels by name in
+    ms, the host's ms from start to a synchronized end) under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    return out, kernels, host_ms
+
+
+def diffusion_phase(card: str, user_precision: tuple) -> dict:
+    """Phase 10: the diffusion families at full width.  (a) one fp32 train
+    step of each on the card against the same step on the CPU (the same
+    weights and draws, dropout off), then bf16 steps; (b) both samplers,
+    kernel route (K4, K5) against plain route, with K4's and K5's launches
+    per ``sample_tsc`` call counted; (c) ``cli.main_diffuse``,
+    ``cli.inference_diffuse`` and ``cli.convert_checkpoint``; (d) the
+    timings.  The comparisons run at IEEE fp32; the timed steps, samplers
+    and CLIs at ``user_precision`` (torch's fp32 matmul and cuDNN flags as
+    the process started: what a user's ``python -m`` gets).  Returns the K4
+    and K5 launches of the path (the kernel-route sampler runs and the
+    inference CLI calls) and the timings."""
+    import copy
+    import os
+    import tempfile
+
+    from speech_enhancement_tpu_torch.cli import (
+        convert_checkpoint,
+        inference_diffuse,
+        main_diffuse,
+    )
+    from speech_enhancement_tpu_torch.models import DiffusionTSCNet, Discriminator, TSCNet
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+    from speech_enhancement_tpu_torch.train import (
+        ModuleState,
+        build_optimizer,
+        diffuse_step,
+        inference_schedule,
+        l1_loss,
+        linear_noise_schedule,
+        sample_tsc,
+        sample_waveform,
+        tsc_diffusion_step,
+    )
+    from speech_enhancement_tpu_torch.utils import load_variables
+
+    t_phase = time.perf_counter()
+    betas = linear_noise_schedule(50)
+    full = inference_schedule(betas)
+    fast = inference_schedule(betas, [0.0001, 0.001, 0.01, 0.05, 0.2, 0.35], fast=True)
+    rng = np.random.default_rng(SEED + 13)
+    timings: dict = {}
+
+    def train_step(family, state, clean, noisy, seed, **kw):
+        if family == "diffuse":
+            return diffuse_step(state, clean, noisy, betas, seed, criterion=l1_loss, **kw)
+        return tsc_diffusion_step(state, clean, noisy, betas, seed, **kw)
+
+    def event_ms(fn):
+        """(fn(), its ms between two CUDA events, the host included)."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def step_grads(family, model, dev, dtype):
+        """(loss, every gradient flattened in float64 on the CPU, seconds)
+        of one step of ``model`` on the first batch and the fixed draws,
+        dropout off."""
+        state = ModuleState(no_dropout(model), build_optimizer("sgd", 1e-3, model))
+        grads = read_grads(state.opt, model)
+        clean, noisy = (x.to(dev, dtype) for x in batches[0])
+        t0 = time.perf_counter()
+        loss = float(train_step(family, state, clean, noisy, 0, t=t_draw.to(dev),
+                                noise=noise_draw.to(dev, dtype)))
+        return (loss, torch.cat([grads[k].reshape(-1).double().cpu() for k in sorted(grads)]),
+                time.perf_counter() - t0)
+
+    # (a) one fp32 step of each family, card against CPU: the same seeded
+    # weights, batch and draws (t, noise), dropout off (the CPU's and the
+    # card's dropout streams differ), SGD-Nesterov lr 1e-3, IEEE fp32
+    print(f"[10 diffusion] full width: DiffuSE(64 channels, 30 layers, GroupNorm, n_specs "
+          f"201, hop 100, 50 steps), DiffusionTSCNet(64, 201, 50); ({card})", flush=True)
+    batches = make_batches(rng, 6, 8, SR)
+    draws = torch.Generator().manual_seed(SEED + 14)
+    shape = batches[0][0].shape
+    t_draw = torch.randint(0, 50, shape[:1], generator=draws)
+    noise_draw = torch.randn(shape, generator=draws)
+    card_models, cpu_models = diffusion_models("cuda"), diffusion_models("cpu")
+    for family in FAMILIES:
+        exact_model = copy.deepcopy(cpu_models[family])
+        card_loss, card_grads, _ = step_grads(family, card_models[family], "cuda",
+                                              torch.float32)
+        cpu_loss, cpu_grads, cpu_s = step_grads(family, cpu_models[family], "cpu",
+                                                torch.float32)
+        grad_err = rel_rms_t(card_grads, cpu_grads)
+        grads_ok, how = grad_err <= 1e-3, "bound 1e-3"
+        if not grads_ok:
+            # over 1e-3, each fp32 step is held to its distance from the same
+            # step in float64 on the CPU, a reference the card does not
+            # compute: the card's at most 3x the CPU's.  (The L1 loss's
+            # gradient sums 128k signed terms and keeps their fp32 roundings,
+            # on either device; a card that lost precision, TF32 say, would
+            # stand far past 3x.)
+            _, exact, exact_s = step_grads(family, exact_model.double(), "cpu", torch.float64)
+            card_floor, cpu_floor = rel_rms_t(card_grads, exact), rel_rms_t(cpu_grads, exact)
+            grads_ok = card_floor <= 3 * cpu_floor
+            how = (f"over 1e-3, so each step against the CPU's float64 step ({exact_s:.1f} s): "
+                   f"the card's distance {card_floor:.2e}, at most 3x the CPU fp32 step's "
+                   f"{cpu_floor:.2e} (ratio {card_floor / cpu_floor:.2f})")
+        del exact_model
+        loss_err = abs(card_loss / cpu_loss - 1)
+        check(math.isfinite(card_loss) and loss_err <= 1e-4 and grads_ok,
+              f"{family} fp32 train step, card vs CPU (batch 8 x 16000, same weights and draws, "
+              f"dropout off): loss {card_loss:.6g} vs {cpu_loss:.6g} (rtol {loss_err:.2e}, bound "
+              f"1e-4); all {len(cpu_grads)} gradients relative RMS {grad_err:.2e} ({how}); the "
+              f"CPU fp32 step took {cpu_s:.1f} s on {torch.get_num_threads()} threads")
+    del cpu_models
+    # the timed steps below at the user's flags: fp32 steps 2-4 of the
+    # compared state, then bf16 (compute_dtype) 5 steps of each from fresh
+    # weights, dropout on, and 3 more under the profiler for the busy share
+    flags = f"fp32 flags {user_precision}"
+    with fp32_precision(*user_precision):
+        for family in FAMILIES:
+            model = card_models[family]
+            state = ModuleState(model, build_optimizer("sgd", 1e-3, model))
+            times = [event_ms(lambda b=b, i=i: float(train_step(family, state, *b, i)))[1]
+                     for i, b in enumerate(batches[1:4])]
+            timings[f"{family} fp32 step ms"] = statistics.median(times)
+        del card_models
+        torch.cuda.empty_cache()
+        for family, model in diffusion_models("cuda").items():
+            state = ModuleState(model, build_optimizer("sgd", 1e-3, model))
+            losses, times = [], []
+            for i, b in enumerate(batches[:5]):
+                loss, ms = event_ms(lambda b=b, i=i: float(
+                    train_step(family, state, *b, i, compute_dtype=torch.bfloat16)))
+                losses.append(loss)
+                times.append(ms)
+            _, kernels, host_ms = profiled(lambda: [float(train_step(
+                family, state, *b, 10 + i, compute_dtype=torch.bfloat16))
+                for i, b in enumerate(batches[:3])])
+            device = sum(kernels.values())
+            timings[f"{family} bf16 step ms"] = statistics.median(times[1:])
+            timings[f"{family} bf16 busy"] = device / host_ms
+            check(all(math.isfinite(x) for x in losses),
+                  f"{family} bf16 (compute_dtype) train steps, dropout on: losses "
+                  f"{', '.join(f'{x:.5g}' for x in losses)}")
+            print(f"    info {family} train step at {flags}: fp32 "
+                  f"{timings[f'{family} fp32 step ms']:.2f} ms (median of 3, CUDA events), bf16 "
+                  f"{timings[f'{family} bf16 step ms']:.2f} ms (median of steps 2-5); 3 profiled "
+                  f"bf16 steps: device {device / 3:.2f} ms a step over {host_ms / 3:.2f} ms on the "
+                  f"host's clock, busy share {device / host_ms:.3f} ({card})", flush=True)
+            del model, state
+    torch.cuda.empty_cache()
+
+    # (b) both samplers on the card, kernel route against plain route at
+    # IEEE fp32, the same generator seed; batch 8 x 2 s
+    models = {k: no_dropout(m).eval() for k, m in diffusion_models("cuda").items()}
+    noisy2s = make_batches(rng, 1, 8, 2 * SR)[0][1]
+    path_launches = {"K4": 0, "K5": 0}
+
+    def sampler(kind, schedule, plain):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        fn = sample_tsc if kind == "tsc-diffuse" else sample_waveform
+        k4, k5 = fs.stft_launches, fs.istft_launches
+        out, ms = event_ms(lambda: fn(models[kind], noisy2s, schedule, g, plain=plain))
+        used = (fs.stft_launches - k4, fs.istft_launches - k5)
+        if not plain:
+            path_launches["K4"] += used[0]
+            path_launches["K5"] += used[1]
+        return out, ms, used
+
+    for kind in FAMILIES:  # warm-up: the models' first calls at these shapes
+        sampler(kind, fast, True)
+    for kind, name, schedule, steps in (("tsc-diffuse", "sample_tsc", fast, 6),
+                                        ("tsc-diffuse", "sample_tsc", full, 50),
+                                        ("diffuse", "sample_waveform", fast, 6)):
+        got, ms, used = sampler(kind, schedule, False)
+        want, _, plain_used = sampler(kind, schedule, True)
+        err = rel_rms_t(got, want)
+        bnd, how = 1e-4, "bound 1e-4"
+        if steps == 50:
+            # 50 network calls carry K4's and K5's roundings on: the kernel
+            # route measured 5.03e-4 here on an H100, the same to three
+            # digits in every run (PERF.md), where two plain runs were
+            # bit-equal; the bound is twice that, fixed
+            again, _, _ = sampler(kind, schedule, True)
+            bnd, how = 1e-3, f"bound 1e-3; two plain runs {rel_rms_t(again, want):.2e} apart"
+        want_launches = ((1 + steps, steps) if kind == "tsc-diffuse" else (1, 0))
+        check(bool(torch.isfinite(got).all()) and err <= bnd and used == want_launches
+              and plain_used == (0, 0),
+              f"{name} {steps} steps, batch 8 x 2 s: kernel route vs plain route relative RMS "
+              f"{err:.2e} ({how}); K4, K5 launches {used} (expected "
+              f"{want_launches}; plain route {plain_used})")
+        if steps == 50:
+            timings["sample_tsc step ms at IEEE"] = ms / 50
+
+    # (d) the samplers' times at the user's flags: a reverse step of each
+    # (the 50-step sample_tsc's and the 6-step sample_waveform's, by CUDA
+    # events over the run), both routes over the 6-step schedule, and K4's
+    # and K5's device time inside one profiled 6-step sample_tsc
+    with fp32_precision(*user_precision):
+        for kind in FAMILIES:  # warm-up at these flags
+            sampler(kind, fast, False)
+        timings["sample_tsc 50-step ms"] = sampler("tsc-diffuse", full, False)[1]
+        timings["sample_tsc step ms"] = timings["sample_tsc 50-step ms"] / 50
+        for kind, name in (("tsc-diffuse", "sample_tsc"), ("diffuse", "sample_waveform")):
+            for plain in ("", " plain"):
+                timings[f"{name} 6-step{plain} ms"] = sampler(kind, fast, bool(plain))[1]
+        timings["sample_waveform step ms"] = timings["sample_waveform 6-step ms"] / 6
+        _, kernels, host_ms = profiled(lambda: sampler("tsc-diffuse", fast, False))
+    device = sum(kernels.values())
+    k5 = sum(v for k, v in kernels.items() if "istft_kernel" in k)
+    k4 = sum(v for k, v in kernels.items() if "stft_kernel" in k and "istft_kernel" not in k)
+    timings.update({"sample_tsc K4 ms per step": k4 / 6, "sample_tsc K5 ms per step": k5 / 6,
+                    "sample_tsc device ms per step": device / 6,
+                    "sample_tsc busy": device / host_ms})
+    print(f"    info reverse step, batch 8 x 2 s, at {flags} (CUDA events over the run / its "
+          f"steps): sample_tsc {timings['sample_tsc step ms']:.3f} ms (its 50-step run; at "
+          f"IEEE {timings['sample_tsc step ms at IEEE']:.3f} ms), sample_waveform "
+          f"{timings['sample_waveform step ms']:.3f} ms (its 6-step run); 6-step runs, kernel "
+          f"and plain route: sample_tsc {timings['sample_tsc 6-step ms']:.1f} and "
+          f"{timings['sample_tsc 6-step plain ms']:.1f} ms, sample_waveform "
+          f"{timings['sample_waveform 6-step ms']:.1f} and "
+          f"{timings['sample_waveform 6-step plain ms']:.1f} ms; one profiled 6-step "
+          f"sample_tsc: device {device / 6:.3f} ms a step, of which K4 {k4 / 6:.4f} ms (7 "
+          f"launches / 6) and K5 {k5 / 6:.4f} ms ({100 * (k4 + k5) / device:.2f}% of device "
+          f"time), busy share {device / host_ms:.3f} ({card})", flush=True)
+    sampler_launches = dict(path_launches)
+
+    # (c) the entry points on the synthetic corpus: one epoch of each arch,
+    # inference --fast --validate-epochs on its checkpoints, and the
+    # converter on reference-layout files written from this phase's weights
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_diffusion_")
+    root = tmp.name
+    overlay = write_corpus(root, np.random.default_rng(SEED + 16))
+    with fp32_precision(*user_precision):  # the CLIs as a user runs them
+        for arch in FAMILIES:
+            out = os.path.join(root, arch)
+            t0 = time.perf_counter()
+            (record,) = main_diffuse.main(["-a", arch, "--cfg", overlay, "--output", out, "--seed",
+                                           "0", "--epochs", "1"])
+            train_s = time.perf_counter() - t0
+            k4, k5 = fs.stft_launches, fs.istft_launches
+            t0 = time.perf_counter()
+            results = inference_diffuse.main(["-a", arch, "--cfg", overlay, "--fast", "-m",
+                                              os.path.join(out, arch, "default"), "-o",
+                                              os.path.join(root, f"enhanced_{arch}"),
+                                              "--validate-epochs"])
+            infer_s = time.perf_counter() - t0
+            used = (fs.stft_launches - k4, fs.istft_launches - k5)
+            path_launches["K4"] += used[0]
+            path_launches["K5"] += used[1]
+            losses = record["train_losses"] + [record["valid_loss"]]
+            metrics = results[0][1] if results else np.array([])
+            check(len(record["train_losses"]) == 6 and all(math.isfinite(x) for x in losses)
+                  and len(results) == 1 and len(metrics) == 6 and np.isfinite(metrics).all()
+                  and used[0] > 0 and (used[1] > 0) == (arch == "tsc-diffuse"),
+                  f"cli.main_diffuse -a {arch} (1 epoch, 6 steps, {train_s:.1f} s): losses "
+                  f"{', '.join(f'{x:.4g}' for x in record['train_losses'])}, valid "
+                  f"{record['valid_loss']:.4g}; cli.inference_diffuse --fast --validate-epochs "
+                  f"({infer_s:.1f} s): six finite metrics "
+                  f"{', '.join(f'{x:.3f}' for x in metrics)}; launches K4, K5 {used}")
+            timings[f"{arch} cli epoch s"], timings[f"{arch} cli inference s"] = train_s, infer_s
+
+    x1 = noisy2s[:2, :SR].contiguous()
+    spec = fs.fused_stft(x1)
+    t = torch.tensor([3, 31], device="cuda")
+    gen_model = TSCNet(64, 201, device="cuda", generator=torch.Generator().manual_seed(SEED))
+    disc_model = Discriminator(16, device="cuda",
+                               generator=torch.Generator().manual_seed(SEED + 1))
+    sources = {
+        "diffuse": ({"arch": "diffuse", "state_dict": models["diffuse"].state_dict()},
+                    lambda m: (m(x1, spec.abs()[:, :-1], t),)),
+        "tsc-diffuse": ({"arch": "tsc-diffuse",
+                         "state_dict": models["tsc-diffuse"].state_dict()},
+                        lambda m: m(spec, spec, t)),
+        "gan": ({"epoch": 1, "arch": "scp", "gen_state_dict": gen_model.state_dict(),
+                 "disc_state_dict": disc_model.state_dict()},
+                lambda m: m.eval()(spec)),
+    }
+    for name, (ckpt, run) in sources.items():
+        path = os.path.join(root, f"{name}.pth.tar")
+        torch.save({k: ({f"module.{n}": v.cpu() for n, v in sd.items()}
+                        if isinstance(sd, dict) else sd) for k, sd in ckpt.items()}, path)
+        convert_checkpoint.main([path, os.path.join(root, f"converted_{name}")])
+        variables = load_variables(os.path.join(root, f"converted_{name}"))
+        if name == "gan":
+            src, model = gen_model, TSCNet(64, 201, device="cuda")
+            model.load_state_dict(variables["gen"])
+        else:
+            src = models[name]
+            model = (convert_checkpoint.diffuse_from_state_dict(variables["model"])
+                     if name == "diffuse" else DiffusionTSCNet(64, 201, device="cpu"))
+            model.load_state_dict(variables["model"])
+            model = model.cuda().eval()
+        with torch.no_grad():
+            got, want = run(model), run(src.eval())
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"cli.convert_checkpoint on a reference-layout {name} file of this "
+                    f"phase's weights: the converted model's outputs equal the source's "
+                    f"bit for bit")
+    tmp.cleanup()
+    print(f"    phase 10 in {time.perf_counter() - t_phase:.1f} s; K4, K5 launches of the "
+          f"diffusion path: samplers {sampler_launches}, all {path_launches}", flush=True)
+    return {"launches": path_launches, "timings": timings}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1568,6 +1939,8 @@ def main() -> int:
     train = training_phases(card, gen)
     # 9. the entry points a user runs
     entry = entry_point_phase(card, user_precision)
+    # 10. the diffusion families
+    diffusion = diffusion_phase(card, user_precision)
     print(f"[done] {time.perf_counter() - started:.1f} s, build included", flush=True)
 
     if FAILURES:
@@ -1576,10 +1949,12 @@ def main() -> int:
     pkg = "speech_enhancement_tpu_torch"
     tl, el = train["launches"], entry["launches"]
 
-    def by_path(serving, training, entry_points):
-        return {"launches": serving + training + entry_points,
-                "launches_by_path": {"serving (phase 4)": serving, "training (phase 7)": training,
-                                     "entry points (phase 9)": entry_points}}
+    def by_path(serving, training, entry_points, diffusion=None):
+        paths = {"serving (phase 4)": serving, "training (phase 7)": training,
+                 "entry points (phase 9)": entry_points}
+        if diffusion is not None:
+            paths["diffusion (phase 10)"] = diffusion
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
     rows["K1tf32"]["n161"] = train["rows"]["K1tf32_n161"]
@@ -1623,15 +1998,18 @@ def main() -> int:
          "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
-         **by_path(launches["K4"], 0, el["K4"]), "max_abs_err": errs["K4"], **rows["K4"]},
+         **by_path(launches["K4"], 0, el["K4"], diffusion["launches"]["K4"]),
+         "max_abs_err": errs["K4"], **rows["K4"]},
         {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
-         **by_path(launches["K5"], 0, el["K5"]), "max_abs_err": errs["K5"], **rows["K5"]},
+         **by_path(launches["K5"], 0, el["K5"], diffusion["launches"]["K5"]),
+         "max_abs_err": errs["K5"], **rows["K5"]},
         {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
          "launches": tl["K6"], "max_abs_err": train["errs"]["K6"], **train["rows"]["K6"]},
     ]
     print(json.dumps({"entry_point_timings": entry["timings"]}))
+    print(json.dumps({"diffusion_timings": diffusion["timings"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -12,17 +12,18 @@ Layers (bottom-up):
   ops/       STFT/iSTFT DSP, kernel wrappers with their plain PyTorch versions
   metrics/   PESQ (the native engine's ctypes binding) and the composite
              evaluation metrics (CSIG, CBAK, COVL, SSNR, STOI)
-  models/    TSCNet (CMGAN generator) and the metric discriminator as NCHW
-             ``nn.Module``s
-  train/     criteria, optimizers, GAN train state and steps (SCP-GAN/CMGAN),
-             and the training epoch with its step modes
+  models/    TSCNet (CMGAN generator), the metric discriminator, DiffuSE and
+             the diffusion TSCNet as NCHW / NCL ``nn.Module``s
+  train/     criteria, optimizers, train states, GAN steps (SCP-GAN/CMGAN)
+             and the training epoch with its step modes; the diffusion
+             forward process, reverse schedule, train steps and samplers
   data/      wav IO, the VoiceBank dataset, collator and threaded loader
   config/    the configuration tree and its overlays (read without PyYAML)
   utils/     checkpoints, logging, the preemption guard, JAX-variable ->
              state_dict conversion (numpy only), device selection
   enhance.py batched, length-bucketed enhancement serving
-  cli/       the training and inference entry points (main_gan,
-             inference_gan)
+  cli/       the entry points: main_gan, inference_gan, main_diffuse,
+             inference_diffuse and convert_checkpoint
 
 Importing the package touches no CUDA: kernels are compiled and loaded
 by the first wrapper call that receives a CUDA tensor.  Entry points run

@@ -346,7 +346,8 @@ def _apply_opts(cfg: Config, opts: list[str] | None) -> None:
             pass  # the string as given
         if isinstance(cur, bool):
             val = bool(val)
-        elif isinstance(cur, int) and not isinstance(val, bool):
+        elif isinstance(cur, int) and not isinstance(val, (bool, list)):
+            # a list stays a list: NOISE_SCHEDULE takes a count or the betas
             val = int(val)
         elif isinstance(cur, float):
             val = float(val)

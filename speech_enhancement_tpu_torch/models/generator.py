@@ -14,19 +14,16 @@ activations are recomputed in the backward instead of kept.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from speech_enhancement_tpu_torch.models.conformer import ConformerBlock
 from speech_enhancement_tpu_torch.models.layers import (
     InstanceNorm,
     PReLU,
     init_weights_,
-    recomputing,
+    rematerialized,
 )
 from speech_enhancement_tpu_torch.ops.fused_relayout import swap_seq_axes
 from speech_enhancement_tpu_torch.utils.device import resolve_device
@@ -106,22 +103,6 @@ class TSCB(nn.Module):
             x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).reshape(b * t, f, c)
         x_f = self.freq_conformer(x_f) + x_f
         return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
-
-
-def _rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``block(x)`` under ``torch.utils.checkpoint`` (non-reentrant).  The
-    block's parameters go in as explicit inputs, so that the recompute in
-    the backward sees the tensors the forward saw (a bf16 copy bound by
-    ``torch.func.functional_call`` included, which is unbound by then);
-    dropout masks repeat (checkpoint restores the RNG state) and BatchNorm
-    statistics are updated by the first forward only."""
-    names, params = zip(*block.named_parameters())
-
-    def run(x, *params):
-        return torch.func.functional_call(block, dict(zip(names, params)), (x,))
-
-    return checkpoint(run, x, *params, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class SPConvTranspose2d(nn.Module):
@@ -230,7 +211,7 @@ class TSCNet(nn.Module):
         out = self.dense_encoder(x_in)
         remat = self.remat and self.training and torch.is_grad_enabled()
         for tscb in (self.TSCB_1, self.TSCB_2, self.TSCB_3, self.TSCB_4):
-            out = _rematerialized(tscb, out) if remat else tscb(out)
+            out = rematerialized(tscb, out) if remat else tscb(out)
 
         out_mag = self.mask_decoder(out).float() * mag32
         complex_out = self.complex_decoder(out).float()

@@ -14,6 +14,7 @@ import threading
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def kaiming_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
@@ -117,6 +118,23 @@ def recomputing():
         yield
     finally:
         _remat.active = previous
+
+
+def rematerialized(block: nn.Module, *inputs: torch.Tensor) -> torch.Tensor:
+    """``block(*inputs)`` under ``torch.utils.checkpoint`` (non-reentrant).
+    The block's parameters go in as explicit inputs, so that the recompute
+    in the backward sees the tensors the forward saw (a bf16 copy bound by
+    ``torch.func.functional_call`` included, which is unbound by then);
+    dropout masks repeat (checkpoint restores the RNG state) and BatchNorm
+    statistics are updated by the first forward only."""
+    names, params = zip(*block.named_parameters())
+    n = len(inputs)
+
+    def run(*args):
+        return torch.func.functional_call(block, dict(zip(names, args[n:])), args[:n])
+
+    return checkpoint(run, *inputs, *params, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
 class BatchNorm1d(nn.BatchNorm1d):

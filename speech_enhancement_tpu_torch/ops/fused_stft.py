@@ -30,7 +30,7 @@ from speech_enhancement_tpu_torch.ops import _native
 from speech_enhancement_tpu_torch.ops.stft import istft, stft
 
 __all__ = ["basis_fragment_order", "build", "fused_stft", "fused_istft", "istft_basis",
-           "istft_occupancy", "istft_reference", "stft_basis", "stft_reference"]
+           "istft_occupancy", "istft_reference", "stft_basis", "stft_reference", "supports"]
 
 # kernel launches of each wrapper since import (or since a caller reset it)
 stft_launches = 0
@@ -165,10 +165,18 @@ def istft_reference(spec: torch.Tensor, n_fft: int = 400, hop: int = 100,
     return istft(spec, n_fft, hop, length=length)
 
 
+def supports(n_fft: int, hop: int, comp_type: str) -> bool:
+    """Whether K4 and K5 take this geometry and compression: ``comp_type``
+    ``'pow'`` or ``'none'``, an even ``n_fft`` that is a multiple of
+    ``hop``, and ``n_fft / hop <= 8``."""
+    return (comp_type in _COMP_TYPES and n_fft % 2 == 0 and hop > 0 and n_fft % hop == 0
+            and n_fft // hop <= _MAX_R)
+
+
 def _check_geometry(n_fft: int, hop: int, comp_type: str) -> None:
     if comp_type not in _COMP_TYPES:
         raise ValueError(f"comp_type must be one of {_COMP_TYPES}, got {comp_type!r}")
-    if n_fft % 2 or hop <= 0 or n_fft % hop or n_fft // hop > _MAX_R:
+    if not supports(n_fft, hop, comp_type):
         raise ValueError(
             f"the STFT kernels take an even n_fft that is a multiple of hop "
             f"with n_fft/hop <= {_MAX_R}; got n_fft={n_fft}, hop={hop}")

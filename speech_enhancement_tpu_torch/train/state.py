@@ -1,10 +1,12 @@
-"""GAN train state (port of speech_enhancement_tpu/train/state.py).
+"""Train states (port of speech_enhancement_tpu/train/state.py).
 
-A plain container: the generator and discriminator modules, their
-optimizers (each carrying its learning-rate schedule and update count),
-step counters, ``best_loss`` and ``epoch``.  The train steps update the
-modules and optimizers in place; ``state_dict`` / ``load_state_dict``
-carry all of it through a checkpoint.
+Plain containers.  :class:`GanTrainState`: the generator and
+discriminator modules, their optimizers (each carrying its learning-rate
+schedule and update count), step counters, ``best_loss`` and ``epoch``.
+:class:`ModuleState`: one model (the diffusion families) with its
+optimizer, step counter, ``best_loss`` and ``epoch``.  The train steps
+update the modules and optimizers in place; ``state_dict`` /
+``load_state_dict`` carry all of it through a checkpoint.
 """
 
 from __future__ import annotations
@@ -47,6 +49,33 @@ class GanTrainState:
         self.disc_opt.load_state_dict(state["disc_opt"])
         self.gen_step, self.disc_step = int(state["gen_step"]), int(state["disc_step"])
         self.best_loss, self.epoch = float(state["best_loss"]), int(state["epoch"])
+
+
+@dataclasses.dataclass
+class ModuleState:
+    model: nn.Module
+    opt: Optimizer | None = None
+    step: int = 0
+    best_loss: float = 1e8
+    epoch: int = 0
+
+    def variables(self) -> dict:
+        """The inference-ready weights: ``{"model": state_dict}``."""
+        return {"model": self.model.state_dict()}
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs: the model, the optimizer, the step
+        counter, ``best_loss`` and ``epoch``."""
+        return {**self.variables(), "opt": self.opt.state_dict(), "step": self.step,
+                "best_loss": self.best_loss, "epoch": self.epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output in place (strict for the
+        model)."""
+        self.model.load_state_dict(state["model"])
+        self.opt.load_state_dict(state["opt"])
+        self.step, self.best_loss = int(state["step"]), float(state["best_loss"])
+        self.epoch = int(state["epoch"])
 
 
 def create_gan_state(gen_model: nn.Module, disc_model: nn.Module,

@@ -1,11 +1,12 @@
-"""JAX TSCNet and Discriminator variables -> this package's ``state_dict``,
-with numpy alone.
+"""JAX TSCNet, Discriminator, DiffuSE and diffusion-TSCNet variables ->
+this package's ``state_dict``, with numpy alone.
 
 The same mappings as ``speech_enhancement_tpu/utils/convert_torch.py::
 export_tscnet`` (``:452-472``), which needs JAX to unstack the scanned
-blocks, and ``export_discriminator`` (``:475-502``); these take the flax
-variable trees as nested dicts of numpy arrays, so they run where JAX is
-not installed.
+blocks, and ``export_discriminator`` (``:475-502``), and the exact
+inverses of its ``convert_diffuse`` and ``convert_tsc_diffusion``
+(``:287-352``); these take the flax variable trees as nested dicts of
+numpy arrays, so they run where JAX is not installed.
 """
 
 from __future__ import annotations
@@ -173,6 +174,80 @@ def discriminator_state_dict_from_flax(params_np: Tree,
         sd[f"layers.{lid}.weight_v"] = _f32(spectral_np[name]["v"])
     _prelu(params_np["prelu_fc"], sd, "layers.16")
     sd["layers.18.slope"] = _f32(params_np["sigmoid"]["slope"])
+    return _tensors(sd)
+
+
+def _embedding(p: Tree, sd: dict, prefix: str) -> None:
+    _linear(p["projection1"], sd, f"{prefix}.projection1")
+    _linear(p["projection2"], sd, f"{prefix}.projection2")
+
+
+def _residual_block(p: Tree, sd: dict, prefix: str, use_groupnorm: bool) -> None:
+    if use_groupnorm:
+        _conv1d(p["dilated_conv"], sd, f"{prefix}.dilated_conv.0")
+        _norm(p["dilated_norm"], sd, f"{prefix}.dilated_conv.1")
+        _conv1d(p["output_projection"], sd, f"{prefix}.output_projection.0")
+        _norm(p["output_norm"], sd, f"{prefix}.output_projection.1")
+    else:
+        _conv1d(p["dilated_conv"], sd, f"{prefix}.dilated_conv")
+        _conv1d(p["output_projection"], sd, f"{prefix}.output_projection")
+    _linear(p["diffusion_projection"], sd, f"{prefix}.diffusion_projection")
+    _conv1d(p["conditioner_projection"], sd, f"{prefix}.conditioner_projection")
+    _conv1d(p["output_residual"], sd, f"{prefix}.output_residual")
+
+
+def residual_block_state_dict(params_np: Tree,
+                              use_groupnorm: bool = True) -> dict[str, torch.Tensor]:
+    """One flax DiffuSE ``ResidualBlock``'s params -> ``ResidualBlock``
+    state_dict."""
+    sd: dict = {}
+    _residual_block(params_np, sd, "", use_groupnorm)
+    return _tensors({k[1:]: v for k, v in sd.items()})
+
+
+def diffuse_state_dict_from_flax(params_np: Tree,
+                                 use_groupnorm: bool = True) -> dict[str, torch.Tensor]:
+    """Flax ``DiffuSE`` params (numpy leaves) -> this package's ``DiffuSE``
+    state_dict, the inverse of ``convert_diffuse``.  The upsampler's flax
+    kernel ``[2L, 3, 1, 1]`` (time, freq) is flipped on both axes and
+    transposed back to torch's ``[1, 1, 3, 2L]`` (freq, time)."""
+    sd: dict = {}
+    _conv1d(params_np["input_projection"], sd, "input_projection")
+    _embedding(params_np["diffusion_embedding"], sd, "diffusion_embedding")
+    up = params_np["spectrogram_upsampler"]
+    for name in ("conv1", "conv2"):
+        kernel = np.flip(_f32(up[name])[:, :, 0, 0], (0, 1)).T
+        sd[f"spectrogram_upsampler.{name}.weight"] = kernel[None, None].copy()
+        sd[f"spectrogram_upsampler.{name}.bias"] = _f32(up[f"{name}_bias"])
+    n = 0
+    while f"residual{n}" in params_np:
+        _residual_block(params_np[f"residual{n}"], sd, f"residual_layers.{n}", use_groupnorm)
+        n += 1
+    _conv1d(params_np["skip_projection"], sd, "skip_projection")
+    _conv1d(params_np["output_projection"], sd, "output_projection")
+    return _tensors(sd)
+
+
+def tsc_diffusion_state_dict_from_flax(params_np: Tree,
+                                       batch_stats_np: Tree) -> dict[str, torch.Tensor]:
+    """Flax ``DiffusionTSCNet`` variables (``params``, ``batch_stats``;
+    numpy leaves) -> this package's ``DiffusionTSCNet`` state_dict, the
+    inverse of ``convert_tsc_diffusion``: the one ``merge_block``, and
+    ``tscb1..4`` to ``TSCB_1..4``."""
+    sd: dict = {}
+    _dense_encoder(params_np["dense_encoder"], sd, "dense_encoder")
+    _dense_encoder(params_np["dense_encoder_noisy"], sd, "dense_encoder_noisy")
+    merge = params_np["merge_block"]
+    _embedding(merge["diffusion_embedding"], sd, "merge_block.diffusion_embedding")
+    _linear(merge["diffusion_projection"], sd, "merge_block.diffusion_projection")
+    for name in ("merge_diffusion", "conditioner_projection", "output_residual"):
+        _conv2d(merge[name], sd, f"merge_block.{name}")
+    for k in range(1, 5):
+        blk_p, blk_s = params_np[f"tscb{k}"], batch_stats_np[f"tscb{k}"]
+        for axis in ("time_conformer", "freq_conformer"):
+            _conformer(blk_p[axis], blk_s[axis], sd, f"TSCB_{k}.{axis}.")
+    _mask_decoder(params_np["mask_decoder"], sd, "mask_decoder")
+    _complex_decoder(params_np["complex_decoder"], sd, "complex_decoder")
     return _tensors(sd)
 
 

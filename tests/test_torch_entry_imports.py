@@ -1,7 +1,8 @@
 """The port's entry points and what they stand on (config, data, composite
-metrics, checkpoints, logging, the training loop, the two CLIs) import
-nothing of JAX, flax, optax, yaml or the JAX package, and need no CUDA
-toolchain to import; the packaged overlays load without yaml.
+metrics, checkpoints, logging, the training loop, the GAN and diffusion
+CLIs and the checkpoint converter) import nothing of JAX, flax, optax,
+yaml or the JAX package, and need no CUDA toolchain to import; the
+packaged overlays load without yaml.
 
 Checked in a fresh interpreter (this test process has JAX loaded, by
 tests/conftest.py), as tests/test_torch_imports.py checks the modules of
@@ -29,6 +30,9 @@ MODULES = [
     "speech_enhancement_tpu_torch.cli",
     "speech_enhancement_tpu_torch.cli.main_gan",
     "speech_enhancement_tpu_torch.cli.inference_gan",
+    "speech_enhancement_tpu_torch.cli.main_diffuse",
+    "speech_enhancement_tpu_torch.cli.inference_diffuse",
+    "speech_enhancement_tpu_torch.cli.convert_checkpoint",
 ]
 
 PROBE = """

@@ -31,11 +31,14 @@ MODULES = [
     "speech_enhancement_tpu_torch.models.conformer",
     "speech_enhancement_tpu_torch.models.generator",
     "speech_enhancement_tpu_torch.models.discriminator",
+    "speech_enhancement_tpu_torch.models.diffuse",
+    "speech_enhancement_tpu_torch.models.tsc_diffusion",
     "speech_enhancement_tpu_torch.train",
     "speech_enhancement_tpu_torch.train.criterion",
     "speech_enhancement_tpu_torch.train.optim",
     "speech_enhancement_tpu_torch.train.state",
     "speech_enhancement_tpu_torch.train.gan",
+    "speech_enhancement_tpu_torch.train.diffusion",
     "speech_enhancement_tpu_torch.utils",
     "speech_enhancement_tpu_torch.utils.convert",
     "speech_enhancement_tpu_torch.utils.device",
