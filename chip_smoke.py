@@ -106,7 +106,34 @@ line each (timings beside the card's name and power limit):
    --validate-epochs`` on its checkpoints, on a corpus as phase 9's (six
    finite metrics); ``cli.convert_checkpoint`` on reference-layout
    DiffuSE, diffusion-TSCNet and GAN files of the phase's weights (the
-   converted model's outputs equal the source's bit for bit).
+   converted model's outputs equal the source's bit for bit);
+11. standalone CDiffuSE at full width (the JAX CLI's ``PARAMS``: ``DiffuSE``
+   64 channels, 30 layers, cycle 10, no GroupNorm, n_specs 201, hop 100;
+   Adam 2e-4; batch 16 x 1 s; 50 linear steps), on a corpus as phase 9's
+   (32 + 6 pairs): ``cli.preprocess`` (one float32 ``[201, frames]``
+   finite spectrogram per wav, the first within 1e-6 of ``make_spectrum``);
+   ``cli.cdiffuse`` for 6 steps, and for 3 then resumed to 6 in another
+   directory (``summary.jsonl`` and ``weights/`` written, the resumed run
+   starting at step 3, steps 3-5 taking the straight run's batches and
+   seeds, checksummed through a hook on the learner's step; every loss and
+   grad norm finite), with the step time (CUDA events, median of steps
+   2-5), the busy share (``utils.profiling.trace``, resumed steps 4-5) and
+   the peak allocated bytes (``utils.profiling.device_memory_stats``); one
+   learner step on the card against the CPU (the same seeded weights,
+   batch and draws: loss rtol 1e-5, grad_norm rtol 1e-4, gradients 1e-3;
+   over a bound, against the CPU's float64 step: the loss within 1e-5 of
+   it, the grad norm and the gradients at most 3x the CPU fp32 step's
+   distance from it); ``cli.cdiffuse_inference --conditioner auto`` (K4, one
+   launch an utterance) on the learner's checkpoint, fast and 50 steps
+   (finite, in [-1, 1], cut to the sampled length), and ``predict``'s
+   kernel route against ``plain`` on the same draws (relative RMS 1e-4);
+   a reverse step at batch 1 x 4 s (CUDA events), its device time
+   (``utils.profiling.trace``) and K4's share of it (K4 by CUDA events); ``cli.convert_checkpoint`` on two
+   reference-layout ``weights.pt`` files of seeded weights (hop 100 / 201
+   bins; hop 256 / 80 bins with ``params``: cycle 8, a 6-step schedule;
+   the converted model's outputs equal the source's bit for bit) and
+   ``cli.cdiffuse_inference --fast`` on each with ``auto``, ``se`` and
+   ``mel``.
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -122,9 +149,10 @@ the port.
 
 The line before the last is the kernels' JSON record (``launches``: the
 main paths' counts: phases 4 and 7, each zeroed before its path, phase
-9's CLI calls, each counted from before to after it, and phase 10's
-kernel-route sampler runs and ``inference_diffuse`` calls; with
-``launches_by_path``), after phase 9's and phase 10's timings as JSON;
+9's CLI calls, each counted from before to after it, phase 10's
+kernel-route sampler runs and ``inference_diffuse`` calls, and phase 11's
+``cdiffuse_inference`` calls with the |STFT| conditioner; with
+``launches_by_path``), after phase 9's, 10's and 11's timings as JSON;
 the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
 last line; with no CUDA device it exits 1 at once.
@@ -392,13 +420,14 @@ def make_batches(rng, n: int, batch: int = 8, length: int = SR):
 
 
 def read_grads(opt, module) -> dict:
-    """Wrap ``opt.step`` so that it first copies every gradient it takes."""
-    names = [n for n, _ in module.named_parameters()]
+    """Wrap ``opt.step`` so that it first copies the gradient of every
+    parameter of ``module``."""
+    named = list(module.named_parameters())
     grads: dict = {}
     step = opt.step
 
     def step_reading_grads():
-        grads.update((n, p.grad.clone()) for n, p in zip(names, opt.params))
+        grads.update((n, p.grad.clone()) for n, p in named)
         step()
 
     opt.step = step_reading_grads
@@ -1564,6 +1593,384 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
     return {"launches": path_launches, "timings": timings}
 
 
+def longest(kernels: dict, n: int = 6) -> str:
+    """The ``n`` entries of ``kernels`` (name: ms) with the most time, as
+    text."""
+    return "; ".join(f"{k[:60]} {v:.2f} ms"
+                     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:n])
+
+
+def cdiffuse_model(device: str, seed: int, **sizes):
+    """A full-width standalone-CDiffuSE ``DiffuSE`` (64 channels, 30 layers,
+    no GroupNorm; ``sizes`` override the hop, bins, cycle, steps) from
+    ``seed``, its zero-initialized output conv given seeded weights of RMS
+    0.01."""
+    from speech_enhancement_tpu_torch.models import DiffuSE
+
+    model = DiffuSE(use_groupnorm=False, device=device,
+                    generator=torch.Generator().manual_seed(seed), **sizes)
+    with torch.no_grad():
+        w = torch.randn(model.output_projection.weight.shape,
+                        generator=torch.Generator().manual_seed(seed + 1))
+        model.output_projection.weight.copy_(0.01 * w)
+    return model
+
+
+def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
+    """Phase 11: standalone CDiffuSE at full width (the JAX CLI's ``PARAMS``:
+    64 channels, 30 layers, cycle 10, 201 bins at hop 100, batch 16 x 1 s,
+    Adam 2e-4, 50 linear steps) on a synthetic corpus.  (a) ``cli.preprocess``;
+    (b) ``cli.cdiffuse`` to 6 steps straight, and to 3 then resumed to 6,
+    the batches and seeds of steps 3-5 held equal through a hook on the
+    learner's step, with the step time, busy share and peak memory; (c) one
+    learner step, card against CPU at IEEE fp32; (d) ``cli.cdiffuse_inference``
+    on the learner's checkpoint (``auto``: K4), fast and 50 steps, and the
+    kernel route against ``plain`` on the same draws; the reverse step's
+    time and K4's share; (e) ``cli.convert_checkpoint`` on two
+    reference-layout ``weights.pt`` files (hop 100 / 201 bins, and hop 256 /
+    80 bins with params: cycle 8, 6 steps) and inference on each with
+    ``auto``, ``se`` and ``mel``.  The CLIs and timings run at
+    ``user_precision``, the comparisons at IEEE.  Returns K4's launches of
+    the inference CLI calls and the timings."""
+    import copy
+    import glob
+    import hashlib
+    import os
+    import tempfile
+
+    from speech_enhancement_tpu_torch.cli import cdiffuse, cdiffuse_inference, convert_checkpoint
+    from speech_enhancement_tpu_torch.cli import preprocess as preprocess_cli
+    from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset, load_wav
+    from speech_enhancement_tpu_torch.data.preprocess import make_spectrum
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+    from speech_enhancement_tpu_torch.train import ModuleState, diffuse_step, l1_loss
+    from speech_enhancement_tpu_torch.train import learner as learner_mod
+    from speech_enhancement_tpu_torch.utils import device_memory_stats, trace
+
+    t_phase = time.perf_counter()
+    flags = f"fp32 flags {user_precision}"
+    timings: dict = {"timed at": f"{flags} (torch's as the process started)",
+                     "compared at": "ieee"}
+    k4_path = 0  # K4 launches of the cdiffuse_inference CLI calls
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cdiffuse_")
+    root = tmp.name
+    # 32 training pairs: two batches of 16 a pass, so that a stop at step 3
+    # falls inside pass 1
+    write_corpus(root, np.random.default_rng(SEED + 20), n_train=32, n_test=6)
+    clean_dir, noisy_dir, test_dir = (os.path.join(root, d) for d in
+                                      ("clean_train", "noisy_train", "noisy_test"))
+    print(f"[11 cdiffuse] full width: DiffuSE(64 channels, 30 layers, cycle 10, n_specs 201, "
+          f"hop 100, no GroupNorm), Adam 2e-4, batch 16 x 1 s, 50 linear steps; synthetic "
+          f"corpus of 32 + 6 pairs; CLIs and timings at {flags}, comparisons at 'ieee' "
+          f"({card})", flush=True)
+
+    # (a) preprocessing on the host
+    t0 = time.perf_counter()
+    files = preprocess_cli.main([clean_dir, os.path.join(root, "specs"), "--workers", "4"])
+    timings["preprocess s"] = time.perf_counter() - t0
+    wavs = sorted(glob.glob(f"{clean_dir}/*.wav"))
+    specs = [np.load(f) for f in files]
+    want, _, _ = make_spectrum(wavs[0])
+    err = float(np.abs(specs[0] - want).max())
+    check([os.path.basename(f) for f in files] == [os.path.basename(w) + ".spec.npy"
+                                                   for w in wavs]
+          and all(x.dtype == np.float32 and x.ndim == 2 and x.shape[0] == 201
+                  and np.isfinite(x).all() for x in specs) and err <= 1e-6,
+          f"cli.preprocess on {len(wavs)} wavs ({timings['preprocess s']:.1f} s): one "
+          f".wav.spec.npy each, [201, frames] float32, finite; the first against "
+          f"make_spectrum max abs {err:.2e} (bound 1e-6)")
+
+    # (b) the learner through its CLI, its step recorded by a hook
+    real_step = learner_mod.diffuse_step
+    record: list = []  # (step, seed, clean sha1, noisy sha1, loss, grad_norm)
+    events: list = []
+    window: dict = {}
+
+    def recording_step(state, clean, noisy, schedule, seed, **kw):
+        idx = state.step
+        if idx == window.get("first"):
+            torch.cuda.synchronize()
+            window["stack"] = contextlib.ExitStack()
+            window["prof"] = window["stack"].enter_context(trace(os.path.join(root, "trace")))
+            window["t0"] = time.perf_counter()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        loss, grad_norm = real_step(state, clean, noisy, schedule, seed, **kw)
+        marks[1].record()
+        if idx == window.get("last"):
+            torch.cuda.synchronize()
+            window["host_s"] = time.perf_counter() - window["t0"]
+            window["stack"].close()
+        events.append(marks)
+        record.append((idx, seed, *(hashlib.sha1(x.cpu().numpy().tobytes()).hexdigest()[:16]
+                                    for x in (clean, noisy)), float(loss), float(grad_norm)))
+        return loss, grad_norm
+
+    def run_learner(model_dir, max_steps):
+        record.clear()
+        events.clear()
+        t0 = time.perf_counter()
+        learner = cdiffuse.main([model_dir, clean_dir, noisy_dir, "--max-steps", str(max_steps),
+                                 "-j", "4"])
+        return learner, list(record), [a.elapsed_time(b) for a, b in events], \
+            time.perf_counter() - t0
+
+    learner_mod.diffuse_step = recording_step
+    try:
+        with fp32_precision(*user_precision):
+            straight_dir, resumed_dir = (os.path.join(root, d) for d in ("straight", "resumed"))
+            torch.cuda.reset_peak_memory_stats()
+            straight, straight_rec, step_ms, straight_s = run_learner(straight_dir, 6)
+            peak = device_memory_stats()[0]["allocated_bytes.all.peak"]
+            stopped, stopped_rec, _, stopped_s = run_learner(resumed_dir, 3)
+            window.update(first=4, last=5)
+            resumed, resumed_rec, _, resumed_s = run_learner(resumed_dir, 6)
+    finally:
+        learner_mod.diffuse_step = real_step
+    learner_kernels = {e.key: e.self_device_time_total / 2e3
+                       for e in window["prof"].key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA}
+    device = 2 * sum(learner_kernels.values())
+    timings.update({"learner step ms": statistics.median(step_ms[1:5]), "learner steps ms": step_ms,
+                    "learner busy": device / (window["host_s"] * 1e3),
+                    "learner peak allocated bytes": peak,
+                    "cdiffuse cli s (6 steps, 3, resume to 6)": [straight_s, stopped_s, resumed_s]})
+    losses = [r[4:] for r in straight_rec + stopped_rec + resumed_rec]
+    written = all(os.path.exists(os.path.join(d, name)) for d in (straight_dir, resumed_dir)
+                  for name in ("summary.jsonl", "weights/state.pt", "weights/variables.pt"))
+    check(straight.step == 6 and stopped.step == 3 and resumed.step == 6 and written
+          and [r[0] for r in resumed_rec] == [3, 4, 5]
+          and [r[:4] for r in resumed_rec] == [r[:4] for r in straight_rec[3:]]
+          and [r[:4] for r in stopped_rec] == [r[:4] for r in straight_rec[:3]]
+          and all(math.isfinite(x) for pair in losses for x in pair),
+          f"cli.cdiffuse 6 steps straight ({straight_s:.1f} s), then 3 and a resume to 6 in "
+          f"another directory ({stopped_s:.1f} + {resumed_s:.1f} s): summary.jsonl and "
+          f"weights/ written; the resumed run starts at step {resumed_rec[0][0]}; steps 3-5 "
+          f"take the straight run's batches and seeds (sha1 of each batch); losses "
+          f"{', '.join(f'{r[4]:.4g}' for r in straight_rec)} and grad norms "
+          f"{', '.join(f'{r[5]:.4g}' for r in straight_rec)} (straight run), all finite")
+    print(f"    info learner step at {flags}: {timings['learner step ms']:.2f} ms (CUDA events, "
+          f"median of steps 2-5: {', '.join(f'{x:.2f}' for x in step_ms)}); busy share "
+          f"{timings['learner busy']:.3f} (utils.profiling.trace over resumed steps 4-5: device "
+          f"{device / 2:.2f} ms a step over {window['host_s'] * 1e3 / 2:.2f} ms on the host's "
+          f"clock); peak allocated {peak / 2 ** 30:.2f} GiB (device_memory_stats); the six "
+          f"longest kernels a step: {longest(learner_kernels)} ({card})", flush=True)
+    del straight, stopped, resumed
+
+    # (c) one learner step, card against CPU, IEEE fp32: the same seeded
+    # weights, first batch and draws (t, noise), Adam 2e-4
+    loader = DataLoader(VoicebankDataset(clean_dir, noisy_dir, 100, 160), 16,
+                        Collator(100, 160, rng=np.random.default_rng(0), silence_check=False),
+                        shuffle=True, seed=0, num_workers=4)
+    batch = next(iter(loader))
+    draws = torch.Generator().manual_seed(SEED + 21)
+    t_draw = torch.randint(0, 50, (16,), generator=draws)
+    noise_draw = torch.randn((16, 16000), generator=draws)
+    betas = np.linspace(1e-4, 0.035, 50)
+
+    def learner_step(model, dev, dtype):
+        """(loss, grad_norm, every gradient flattened in float64 on the CPU,
+        seconds) of one learner step of ``model``."""
+        state = ModuleState(model, torch.optim.Adam(model.parameters(), lr=2e-4))
+        grads = read_grads(state.opt, model)
+        clean, noisy = (torch.from_numpy(x).to(dev, dtype) for x in (batch.audio, batch.noisy))
+        t0 = time.perf_counter()
+        loss, norm = diffuse_step(state, clean, noisy, betas, 0, criterion=l1_loss,
+                                  t=t_draw.to(dev), noise=noise_draw.to(dev, dtype),
+                                  return_grad_norm=True)
+        loss, norm = float(loss), float(norm)
+        return (loss, norm, torch.cat([grads[k].reshape(-1).double().cpu() for k in sorted(grads)]),
+                time.perf_counter() - t0)
+
+    cpu_model = cdiffuse_model("cpu", SEED + 22)
+    exact_model = copy.deepcopy(cpu_model).double()
+    card_loss, card_norm, card_grads, _ = learner_step(copy.deepcopy(cpu_model).cuda(), "cuda",
+                                                       torch.float32)
+    cpu_loss, cpu_norm, cpu_grads, cpu_s = learner_step(cpu_model, "cpu", torch.float32)
+    loss_err, norm_err = abs(card_loss / cpu_loss - 1), abs(card_norm / cpu_norm - 1)
+    grad_err = rel_rms_t(card_grads, cpu_grads)
+    ok = loss_err <= 1e-5 and norm_err <= 1e-4 and grad_err <= 1e-3
+    how = "each against the CPU fp32 step's"
+    if not ok:
+        # the CPU's fp32 step is a reference with its own roundings (about
+        # 3e-5 in the loss, 6e-4 in the grad norm and 1e-3 in the gradients
+        # from float64 on an H100 host): over a bound, the card is held to
+        # the same step in float64 on the CPU: the loss within 1e-5 of it;
+        # the grad norm and the gradients by phase 10's rule, the card's
+        # distance at most 3x the CPU fp32 step's
+        exact_loss, exact_norm, exact, exact_s = learner_step(exact_model, "cpu", torch.float64)
+        dist = {name: (abs(card / exact_v - 1), abs(cpu / exact_v - 1)) for name, card, cpu, exact_v
+                in (("loss", card_loss, cpu_loss, exact_loss),
+                    ("grad_norm", card_norm, cpu_norm, exact_norm))}
+        card_floor, cpu_floor = rel_rms_t(card_grads, exact), rel_rms_t(cpu_grads, exact)
+        ok = ((loss_err <= 1e-5 or dist["loss"][0] <= 1e-5)
+              and (norm_err <= 1e-4 or dist["grad_norm"][0] <= 3 * dist["grad_norm"][1])
+              and (grad_err <= 1e-3 or card_floor <= 3 * cpu_floor))
+        how = (f"over a bound, so against the CPU's float64 step ({exact_s:.1f} s): loss, card "
+               f"{dist['loss'][0]:.2e} and CPU fp32 {dist['loss'][1]:.2e} from it (bound 1e-5); "
+               f"grad_norm {dist['grad_norm'][0]:.2e} and {dist['grad_norm'][1]:.2e}, "
+               f"gradients {card_floor:.2e} and {cpu_floor:.2e} (bounds: 3x the CPU's)")
+        timings.update({"card vs float64 loss rtol": dist["loss"][0],
+                        "cpu fp32 vs float64 loss rtol": dist["loss"][1],
+                        "card vs float64 grad_norm rtol": dist["grad_norm"][0],
+                        "cpu fp32 vs float64 grad_norm rtol": dist["grad_norm"][1],
+                        "card vs float64 gradients rel rms": card_floor,
+                        "cpu fp32 vs float64 gradients rel rms": cpu_floor})
+    del exact_model
+    check(math.isfinite(card_loss) and ok,
+          f"learner step (diffuse_step, return_grad_norm) card vs CPU, batch 16 x 16000, same "
+          f"weights and draws: loss {card_loss:.7g} vs {cpu_loss:.7g} (rtol {loss_err:.2e}, "
+          f"bound 1e-5); grad_norm {card_norm:.7g} vs {cpu_norm:.7g} (rtol {norm_err:.2e}, "
+          f"bound 1e-4); all {len(cpu_grads)} gradients relative RMS {grad_err:.2e} (bound "
+          f"1e-3); {how}; the CPU fp32 step took {cpu_s:.1f} s on {torch.get_num_threads()} "
+          f"threads")
+    timings.update({"card vs cpu loss rtol": loss_err, "card vs cpu grad_norm rtol": norm_err,
+                    "card vs cpu gradients rel rms": grad_err})
+
+    # (d) inference on the learner's checkpoint: the CLI (auto: K4) fast and
+    # at 50 steps, then the kernel route against plain on the same draws
+    noisy_test = [load_wav(p)[0] for p in sorted(glob.glob(f"{test_dir}/*.wav"))]
+
+    def infer(model_dir, *extra):
+        """cdiffuse_inference.main on the test wavs: (results, seconds, K4
+        launches of the call)."""
+        k4 = fs.stft_launches
+        t0 = time.perf_counter()
+        out = cdiffuse_inference.main(["--model-dir", model_dir, "--noisy", test_dir, "-o",
+                                       os.path.join(root, "enhanced"), *extra])
+        return out, time.perf_counter() - t0, fs.stft_launches - k4
+
+    def sane(results, hop, cut_to_hop):
+        """Finite, in [-1, 1], and cut to the input's length where the
+        sampled buffer reaches it: hop * (L // hop) for the |STFT|
+        conditioner, hop * (1 + L // hop) >= L for the host ones."""
+        lengths = [len(x) - len(x) % hop if cut_to_hop else len(x) for x in noisy_test]
+        return (len(results) == len(noisy_test)
+                and [len(est) for _, est in results] == lengths
+                and all(np.isfinite(est).all() and np.abs(est).max() <= 1.0
+                        for _, est in results))
+
+    weights_dir = os.path.join(straight_dir, "weights")
+    with fp32_precision(*user_precision):
+        for name, extra, steps in (("fast", ["--fast"], 6), ("50 steps", [], 50)):
+            results, secs, k4 = infer(straight_dir, *extra)
+            k4_path += k4
+            timings[f"cdiffuse_inference {name} s (6 utterances)"] = secs
+            check(sane(results, 100, True) and k4 == len(noisy_test),
+                  f"cli.cdiffuse_inference --conditioner auto ({name}, {secs:.1f} s) on the "
+                  f"learner's checkpoint, {len(noisy_test)} test wavs of 1.5-4 s: finite, in "
+                  f"[-1, 1], hop * (L // hop) samples; K4 launches {k4} (one an utterance)")
+    errs, used = [], {False: [], True: []}
+    for x in noisy_test:
+        noises = torch.randn((6, 1, 100 * (len(x) // 100)),
+                             generator=torch.Generator().manual_seed(SEED + 23))
+        outs = []
+        for plain in (False, True):
+            k4 = fs.stft_launches
+            outs.append(cdiffuse_inference.predict(x, weights_dir, fast=True, noises=noises,
+                                                   plain=plain))
+            used[plain].append(fs.stft_launches - k4)
+        errs.append(rel_rms(*outs))
+    n = len(noisy_test)
+    check(max(errs) <= 1e-4 and used == {False: [1] * n, True: [0] * n},
+          f"cdiffuse_inference.predict, kernel route (K4) vs plain route (ops/stft.py), fast "
+          f"schedule, the same draws, {n} utterances: relative RMS at most {max(errs):.2e} "
+          f"(bound 1e-4); K4 launches {used[False]} and {used[True]} (plain)")
+    x4 = (0.3 * np.random.default_rng(SEED + 24).standard_normal(4 * SR)).astype(np.float32)
+    with fp32_precision(*user_precision):
+        cdiffuse_inference.predict(x4, weights_dir, fast=True)  # warm-up at this length
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        cdiffuse_inference.predict(x4, weights_dir)
+        end.record()
+        end.synchronize()
+        step = start.elapsed_time(end) / 50
+        # the port's own hook (CPU and CUDA activity); its CUDA entries
+        # are the kernels
+        k4_before = fs.stft_launches
+        torch.cuda.synchronize()
+        with trace(os.path.join(root, "trace_reverse")) as prof:
+            t0 = time.perf_counter()
+            cdiffuse_inference.predict(x4, weights_dir, fast=True)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        k4_launched = fs.stft_launches - k4_before
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    device = sum(kernels.values())
+    k4_profiled = sum(v for k, v in kernels.items()
+                      if "stft_kernel" in k and "istft_kernel" not in k)
+    # K4 at this call's shape by CUDA events (device_ms): in this process
+    # the profiler has listed no K4 entry though K4 launched (PERF.md §7)
+    x4_card = torch.from_numpy(x4[None]).cuda()
+    k4_ms = device_ms(lambda: fs.fused_stft(x4_card, comp_type="none"))
+    timings.update({"reverse step ms (batch 1 x 4 s)": step,
+                    "reverse 6-step device ms": device, "reverse 6-step host ms": host_ms,
+                    "reverse K4 ms per call (profiler)": k4_profiled,
+                    "reverse K4 ms per call (CUDA events)": k4_ms,
+                    "reverse K4 share": k4_ms / device})
+    print(f"    info reverse step at batch 1 x 4 s, at {flags}: {step:.3f} ms (CUDA events over "
+          f"a 50-step predict / 50); one 6-step predict under utils.profiling.trace: device "
+          f"{device:.3f} ms over {host_ms:.3f} ms on the host's clock (busy "
+          f"{device / host_ms:.3f}), K4 launched {k4_launched} time(s), its profiler entry "
+          f"{k4_profiled:.4f} ms; K4 at [1, 64000] by CUDA events {k4_ms:.4f} ms a call, "
+          f"{100 * k4_ms / device:.3f}% of the call's device time; the six longest kernels: "
+          f"{longest(kernels)} ({card})", flush=True)
+
+    # (e) reference-layout weights.pt files of this phase's seeded weights,
+    # converted and served with each conditioner their widths allow
+    fast6 = [0.0001, 0.001, 0.01, 0.05, 0.2, 0.35]
+    upstream = {
+        "hop 100, 201 bins": ({}, {}, ("auto", "se", "mel")),
+        "hop 256, 80 bins": (dict(hop_length=256, n_specs=80, dilation_cycle_length=8,
+                                  num_steps=6),
+                             {"dilation_cycle_length": 8, "noise_schedule": fast6,
+                              "inference_noise_schedule": fast6}, ("auto", "se", "mel")),
+    }
+    for i, (name, (sizes, params, modes)) in enumerate(upstream.items()):
+        source = cdiffuse_model("cuda", SEED + 25 + i, **sizes).eval()
+        path, out = (os.path.join(root, f"{x}{i}") for x in ("weights.pt.", "converted_"))
+        torch.save({"step": 1000, "model": {k: v.cpu() for k, v in source.state_dict().items()},
+                    "params": params}, path)
+        convert_checkpoint.main([path, out])
+        model, saved = cdiffuse_inference.load_model(out, "cuda")
+        hop, bins = source.hop_length, source.n_specs
+        audio = torch.from_numpy(noisy_test[0][None, :hop * 40]).cuda()
+        cond = torch.rand((1, 40, bins), generator=torch.Generator().manual_seed(SEED + 27))
+        t = torch.tensor([3.5], device="cuda")
+        with torch.no_grad():
+            same = torch.equal(model(audio, cond.cuda(), t), source(audio, cond.cuda(), t))
+        dilations = [b.dilated_conv.dilation[0] for b in model.residual_layers]
+        check(same and dilations == [2 ** (j % params.get("dilation_cycle_length", 10))
+                                     for j in range(len(dilations))]
+              and model.diffusion_embedding.embedding.shape[0] == len(
+                  params.get("noise_schedule", betas)),
+              f"cli.convert_checkpoint on a reference-layout weights.pt ({name}, params "
+              f"{sorted(params)}): the converted model's outputs equal the source's bit for "
+              f"bit; dilation cycle {params.get('dilation_cycle_length', 10)} and "
+              f"{model.diffusion_embedding.embedding.shape[0]} steps from params.json")
+        with fp32_precision(*user_precision):
+            for mode in modes:
+                route = cdiffuse_inference.conditioner_route(model, mode)
+                results, secs, k4 = infer(out, "--fast", "--conditioner", mode)
+                stft_route = route.startswith("stft")
+                if mode == "auto":
+                    k4_path += k4
+                check(sane(results, hop, stft_route)
+                      and k4 == (len(noisy_test) if stft_route else 0),
+                      f"cli.cdiffuse_inference --fast --conditioner {mode} on the converted "
+                      f"{name} model ({secs:.1f} s): finite outputs in [-1, 1], cut to length; "
+                      f"route {route}; K4 launches {k4}")
+        del source, model
+        cdiffuse_inference._model_cache.clear()
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    timings["phase s"] = time.perf_counter() - t_phase
+    print(f"    phase 11 in {timings['phase s']:.1f} s; K4 launches of the cdiffuse_inference "
+          f"CLI calls {k4_path}", flush=True)
+    return {"launches": {"K4": k4_path}, "timings": timings}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1941,6 +2348,8 @@ def main() -> int:
     entry = entry_point_phase(card, user_precision)
     # 10. the diffusion families
     diffusion = diffusion_phase(card, user_precision)
+    # 11. standalone CDiffuSE
+    cdiffuse = cdiffuse_phase(card, user_precision)
     print(f"[done] {time.perf_counter() - started:.1f} s, build included", flush=True)
 
     if FAILURES:
@@ -1949,11 +2358,13 @@ def main() -> int:
     pkg = "speech_enhancement_tpu_torch"
     tl, el = train["launches"], entry["launches"]
 
-    def by_path(serving, training, entry_points, diffusion=None):
+    def by_path(serving, training, entry_points, diffusion=None, cdiffuse=None):
         paths = {"serving (phase 4)": serving, "training (phase 7)": training,
                  "entry points (phase 9)": entry_points}
         if diffusion is not None:
             paths["diffusion (phase 10)"] = diffusion
+        if cdiffuse is not None:
+            paths["cdiffuse (phase 11)"] = cdiffuse
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
@@ -1998,7 +2409,8 @@ def main() -> int:
          "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
-         **by_path(launches["K4"], 0, el["K4"], diffusion["launches"]["K4"]),
+         **by_path(launches["K4"], 0, el["K4"], diffusion["launches"]["K4"],
+                   cdiffuse["launches"]["K4"]),
          "max_abs_err": errs["K4"], **rows["K4"]},
         {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
@@ -2010,6 +2422,7 @@ def main() -> int:
     ]
     print(json.dumps({"entry_point_timings": entry["timings"]}))
     print(json.dumps({"diffusion_timings": diffusion["timings"]}))
+    print(json.dumps({"cdiffuse_timings": cdiffuse["timings"]}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

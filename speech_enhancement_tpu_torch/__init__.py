@@ -16,14 +16,17 @@ Layers (bottom-up):
              the diffusion TSCNet as NCHW / NCL ``nn.Module``s
   train/     criteria, optimizers, train states, GAN steps (SCP-GAN/CMGAN)
              and the training epoch with its step modes; the diffusion
-             forward process, reverse schedule, train steps and samplers
-  data/      wav IO, the VoiceBank dataset, collator and threaded loader
+             forward process, reverse schedule, train steps and samplers,
+             and the standalone CDiffuSE learner
+  data/      wav IO, the VoiceBank dataset, collator and threaded loader,
+             the CDiffuSE spectrogram dataset and its preprocessing
   config/    the configuration tree and its overlays (read without PyYAML)
-  utils/     checkpoints, logging, the preemption guard, JAX-variable ->
+  utils/     checkpoints, logging, profiling, the preemption guard, JAX-variable ->
              state_dict conversion (numpy only), device selection
   enhance.py batched, length-bucketed enhancement serving
   cli/       the entry points: main_gan, inference_gan, main_diffuse,
-             inference_diffuse and convert_checkpoint
+             inference_diffuse, preprocess, cdiffuse, cdiffuse_inference
+             and convert_checkpoint
 
 Importing the package touches no CUDA: kernels are compiled and loaded
 by the first wrapper call that receives a CUDA tensor.  Entry points run

@@ -1,7 +1,7 @@
 """Convert a reference PyTorch checkpoint into a checkpoint directory of this
 package, or (``--to-torch``) a GAN checkpoint of this package into the
-reference's layout (port of speech_enhancement_tpu/cli/convert_checkpoint.py,
-its GAN and diffusion-trainer branches).
+reference's layout (port of speech_enhancement_tpu/cli/convert_checkpoint.py:
+its GAN, diffusion-trainer and standalone CDiffuSE branches).
 
 The port's modules carry the reference's ``state_dict`` names, so a
 conversion strips the ``module.`` prefix (DDP), loads the weights into the
@@ -27,8 +27,15 @@ inference CLIs) reads.  The branch comes from the file's keys:
   ``inference_diffuse -a <arch> -m <output>`` or ``main_diffuse
   --init-from <output>`` with a config of the same sizes.
 
-The standalone CDiffuSE ``weights.pt`` (``step`` and ``model``) is not
-ported yet and raises.  Only weights convert: optimizer state is not
+- **standalone CDiffuSE** ``weights.pt`` (``step``, ``model`` and
+  ``params``): ``DiffuSE`` without GroupNorm, its sizes read from the keys,
+  its dilation cycle and number of steps from ``params`` ->
+  ``{"model"}`` and ``<output>/params.json`` with the ``params`` that the
+  weights do not show (``dilation_cycle_length``, ``noise_schedule``,
+  ``inference_noise_schedule``), for ``cdiffuse_inference --model-dir
+  <output>``.
+
+Only weights convert: optimizer state is not
 carried, so a converted checkpoint seeds evaluation or fine-tuning, not a
 ``--resume``.  ``--to-torch`` reads ``<checkpoint>/variables.pt`` of a GAN
 checkpoint and writes the reference ``{epoch, arch, gen_state_dict,
@@ -45,6 +52,7 @@ key and shape check) and writes them back out.
 from __future__ import annotations
 
 import argparse
+import json
 import pickle
 from pathlib import Path
 
@@ -52,6 +60,8 @@ import torch
 
 from speech_enhancement_tpu_torch.models import DiffuSE, DiffusionTSCNet, Discriminator, TSCNet
 from speech_enhancement_tpu_torch.utils.checkpoint import VARIABLES
+
+PARAMS_JSON = "params.json"
 
 
 def parse_option(argv=None):
@@ -88,20 +98,45 @@ def _load(module: torch.nn.Module, state_dict: dict, what: str) -> dict:
     return module.state_dict()
 
 
-def diffuse_from_state_dict(sd: dict) -> DiffuSE:
+def diffuse_from_state_dict(sd: dict, params: dict | None = None,
+                            use_groupnorm: bool | None = None) -> DiffuSE:
     """The ``DiffuSE`` whose sizes the reference state_dict's keys and
-    shapes give (``cli/convert_checkpoint.py:111-138``)."""
+    shapes give (``cli/convert_checkpoint.py:111-138``); the dilation cycle
+    and the number of steps, which the weights do not show, come from the
+    checkpoint's ``params`` (``dilation_cycle_length``, the length of
+    ``noise_schedule``), else the reference's 10 and 50.  GroupNorm is read
+    from the keys unless ``use_groupnorm`` says."""
+    params = params or {}
     n_layers = 0
     while f"residual_layers.{n_layers}.diffusion_projection.weight" in sd:
         n_layers += 1
     if n_layers == 0:
         raise SystemExit("no residual_layers.* keys: not a DiffuSE state_dict")
     root = sd["spectrogram_upsampler.conv1.weight"].shape[-1] // 2
-    return DiffuSE(hop_length=root * root,
+    schedule = params.get("noise_schedule")
+    return DiffuSE(dilation_cycle_length=int(params.get("dilation_cycle_length", 10)),
+                   hop_length=root * root,
                    n_specs=sd["residual_layers.0.conditioner_projection.weight"].shape[1],
+                   num_steps=len(schedule) if schedule is not None else 50,
                    residual_channels=sd["input_projection.weight"].shape[0],
                    residual_layers=n_layers,
-                   use_groupnorm="residual_layers.0.dilated_conv.0.weight" in sd, device="cpu")
+                   use_groupnorm=("residual_layers.0.dilated_conv.0.weight" in sd
+                                  if use_groupnorm is None else use_groupnorm),
+                   device="cpu")
+
+
+# the learner's params that the weights do not show (upstream
+# cdiffuse/learner.py saves them beside the model), as params.json
+SAVED_PARAMS = ("dilation_cycle_length", "noise_schedule", "inference_noise_schedule")
+
+
+def _plain(value):
+    """A params value as JSON: tensors and arrays as lists."""
+    if isinstance(value, torch.Tensor):
+        return value.tolist()
+    if isinstance(value, (list, tuple)):
+        return [_plain(v) for v in value]
+    return value.item() if hasattr(value, "item") else value
 
 
 def convert(path: str, n_fft: int = 400) -> dict:
@@ -145,10 +180,14 @@ def convert(path: str, n_fft: int = 400) -> dict:
             model = diffuse_from_state_dict(sd)
         return {"arch": structural, "model": _load(model, sd, "state_dict")}
     if "model" in ckpt and "step" in ckpt:
-        raise SystemExit(f"{path}: a standalone CDiffuSE weights.pt; its conversion is not "
-                         "ported yet (the CDiffuSE slice)")
+        params = {k: _plain(v) for k, v in dict(ckpt.get("params") or {}).items()
+                  if k in SAVED_PARAMS}
+        sd = strip_module_prefix(ckpt["model"])
+        model = diffuse_from_state_dict(sd, params, use_groupnorm=False)
+        return {"arch": "cdiffuse", "model": _load(model, sd, "model"), "params": params}
     raise SystemExit(f"{path}: unrecognized checkpoint layout (keys {sorted(ckpt)[:8]}): "
-                     "expected a reference GAN .pth.tar or a main_diffuse .pth.tar")
+                     "expected a reference GAN .pth.tar, a main_diffuse .pth.tar or a "
+                     "standalone CDiffuSE weights.pt")
 
 
 def export_to_torch(checkpoint: str, output: str, epoch: int = 0, arch: str = "scp") -> None:
@@ -186,7 +225,13 @@ def main(argv=None) -> int:
     if target.exists():
         raise SystemExit(f"{target} already exists; refusing to overwrite")
     out.mkdir(parents=True, exist_ok=True)
-    if "model" in converted:
+    if converted.get("arch") == "cdiffuse":
+        torch.save({"model": converted["model"]}, target)
+        (out / PARAMS_JSON).write_text(json.dumps(converted["params"], indent=1))
+        print(f"wrote {target} and {out / PARAMS_JSON} (standalone CDiffuSE); serve it with\n"
+              f"  python -m speech_enhancement_tpu_torch.cli.cdiffuse_inference --model-dir "
+              f"{out} --noisy <wav or dir> -o <outdir>")
+    elif "model" in converted:
         torch.save({"model": converted["model"]}, target)
         arch = converted["arch"]
         print(f"wrote {target} ({arch} model); serve it with\n"

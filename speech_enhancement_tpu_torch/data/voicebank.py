@@ -190,6 +190,12 @@ class DataLoader:
             np.random.SeedSequence((self.seed, self.epoch, self.shard_id, batch_index)))
 
     def __iter__(self) -> Iterator[Batch]:
+        return self.iterate()
+
+    def iterate(self, start: int = 0) -> Iterator[Batch]:
+        """The epoch's batches from batch ``start`` on: the same batches as a
+        whole epoch's from there (each is keyed by its index), without
+        loading the ones before it."""
         idx = self._indices()
         n_batches = len(self)
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(n_batches)]
@@ -215,16 +221,16 @@ class DataLoader:
                 if isinstance(item, Exception):
                     return
 
-        # round-robin assignment: worker w takes batches w, w + n, ...
+        # round-robin assignment: worker w takes batches start + w, start + w + n, ...
         threads = [threading.Thread(target=worker,
-                                    args=(list(range(w, n_batches, self.num_workers)),),
+                                    args=(list(range(start + w, n_batches, self.num_workers)),),
                                     daemon=True)
-                   for w in range(min(self.num_workers, max(n_batches, 1)))]
+                   for w in range(min(self.num_workers, max(n_batches - start, 1)))]
         for t in threads:
             t.start()
         try:
             received: dict[int, Batch] = {}
-            for next_emit in range(n_batches):
+            for next_emit in range(start, n_batches):
                 while next_emit not in received:
                     b, batch = out_q.get()
                     if isinstance(batch, Exception):

@@ -143,6 +143,7 @@ class DiffuSE(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.remat = True
+        self.hop_length, self.n_specs = hop_length, n_specs
         c = residual_channels
         self.input_projection = nn.Conv1d(1, c, 1)
         self.diffusion_embedding = DiffusionEmbedding(num_steps)

@@ -183,17 +183,22 @@ def _forward(model: torch.nn.Module, compute_dtype: torch.dtype | None) -> Calla
     return lambda *args: torch.func.functional_call(model, cast, args)
 
 
-def _update(state: ModuleState, loss: torch.Tensor) -> None:
+def _update(state: ModuleState, loss: torch.Tensor,
+            grad_norm: bool = False) -> torch.Tensor | None:
     """One optimizer update from ``loss``; a parameter that ``loss`` does
     not reach (DiffuSE's last residual conv) gets a zero gradient, as in
-    JAX, so that weight decay still applies to it."""
+    JAX, so that weight decay still applies to it.  With ``grad_norm``,
+    returns the global L2 norm of the gradients before the update
+    (``optax.global_norm``)."""
     params = list(state.model.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    norm = torch.nn.utils.get_total_norm(grads) if grad_norm else None
     for p, g in zip(params, grads):
         p.grad = g
     state.opt.step()
     state.opt.zero_grad()
     state.step += 1
+    return norm
 
 
 def diffuse_train_loss(model: torch.nn.Module, clean: torch.Tensor, noisy: torch.Tensor,
@@ -216,12 +221,14 @@ def diffuse_train_loss(model: torch.nn.Module, clean: torch.Tensor, noisy: torch
 def diffuse_step(state: ModuleState, clean: torch.Tensor, noisy: torch.Tensor, noise_schedule,
                  seed: int, *, criterion: Callable, n_fft: int = 400, hop: int = 100,
                  train: bool = True, compute_dtype: torch.dtype | None = None,
-                 t: torch.Tensor | None = None,
-                 noise: torch.Tensor | None = None) -> torch.Tensor:
+                 t: torch.Tensor | None = None, noise: torch.Tensor | None = None,
+                 return_grad_norm: bool = False):
     """Waveform DiffuSE train / eval step (``diffusion.py:220-265``) on
     ``[B, L]`` audio: ``criterion(predicted, combine_noise)`` in fp32, then
     one update unless ``train=False`` or the state has no optimizer.
-    Returns the loss (detached)."""
+    Returns the loss (detached), or with ``return_grad_norm`` ``(loss,
+    grad_norm)``: the global L2 norm of every gradient before the update
+    (zero without an update), as the standalone learner logs it."""
     update = train and state.opt is not None
     state.model.train(update)
     generator = torch.Generator(device=clean.device).manual_seed(seed)
@@ -230,8 +237,9 @@ def diffuse_step(state: ModuleState, clean: torch.Tensor, noisy: torch.Tensor, n
                                           n_fft=n_fft, hop=hop, compute_dtype=compute_dtype,
                                           t=t, noise=noise)
         loss = criterion(pred.float(), target.float())
-    if update:
-        _update(state, loss)
+    grad_norm = _update(state, loss, return_grad_norm) if update else loss.new_zeros(())
+    if return_grad_norm:
+        return loss.detach(), grad_norm
     return loss.detach()
 
 

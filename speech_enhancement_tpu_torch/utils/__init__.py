@@ -1,5 +1,6 @@
-"""Checkpoints, logging and meters, the preemption guard, checkpoint
-conversion (``convert.py``) and device selection (``device.py``)."""
+"""Checkpoints, logging and meters, the preemption guard, profiling
+hooks, checkpoint conversion (``convert.py``) and device selection
+(``device.py``)."""
 
 from speech_enhancement_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -14,15 +15,23 @@ from speech_enhancement_tpu_torch.utils.logging import (
     create_logger,
 )
 from speech_enhancement_tpu_torch.utils.preemption import PreemptionGuard
+from speech_enhancement_tpu_torch.utils.profiling import (
+    StepTimer,
+    device_memory_stats,
+    trace,
+)
 
 __all__ = [
     "AverageMeter",
     "PreemptionGuard",
     "ProgressMeter",
+    "StepTimer",
     "create_logger",
+    "device_memory_stats",
     "latest_checkpoint",
     "load_checkpoint",
     "load_variables",
     "save_checkpoint",
     "sweep_checkpoints",
+    "trace",
 ]

@@ -27,8 +27,9 @@ built at width 8, as the JAX CLI tests do.
   models whose outputs equal the source's bit for bit; the JAX package's
   converter, on the same files, gives flax models within relative RMS
   1e-5 of the converted port models; ``--to-torch`` writes a file that
-  both converters read back; a file of the wrong structure, a standalone
-  CDiffuSE ``weights.pt`` and an unknown layout raise;
+  both converters read back; a file of the wrong structure (a standalone
+  CDiffuSE ``weights.pt`` with GroupNorm keys among them) and an unknown
+  layout raise;
 * without ``--device cpu`` both diffusion CLIs raise on a host without a
   card.
 """
@@ -388,7 +389,7 @@ def test_convert_refuses_what_it_cannot_convert(tmp_path):
         "unknown": {"weights": sd},
     }
     messages = {"missing": "do not fit", "reshaped": "do not fit", "disc_only": "no gen_state_dict",
-                "cdiffuse": "not ported yet", "unknown": "unrecognized"}
+                "cdiffuse": "do not fit", "unknown": "unrecognized"}
     for name, ckpt in cases.items():
         torch.save(ckpt, tmp_path / f"{name}.pt")
         with pytest.raises(SystemExit, match=messages[name]):

@@ -1,8 +1,9 @@
 """The port's entry points and what they stand on (config, data, composite
-metrics, checkpoints, logging, the training loop, the GAN and diffusion
-CLIs and the checkpoint converter) import nothing of JAX, flax, optax,
-yaml or the JAX package, and need no CUDA toolchain to import; the
-packaged overlays load without yaml.
+metrics, checkpoints, logging, the training loop, the GAN, diffusion and
+standalone CDiffuSE CLIs, their preprocessing and the checkpoint
+converter) import nothing of JAX, flax, optax, yaml or the JAX package,
+and need no CUDA toolchain to import; the packaged overlays load without
+yaml.
 
 Checked in a fresh interpreter (this test process has JAX loaded, by
 tests/conftest.py), as tests/test_torch_imports.py checks the modules of
@@ -22,6 +23,8 @@ MODULES = [
     "speech_enhancement_tpu_torch.data",
     "speech_enhancement_tpu_torch.data.audio_io",
     "speech_enhancement_tpu_torch.data.voicebank",
+    "speech_enhancement_tpu_torch.data.preprocess",
+    "speech_enhancement_tpu_torch.data.numpy_dataset",
     "speech_enhancement_tpu_torch.metrics.composite",
     "speech_enhancement_tpu_torch.utils.checkpoint",
     "speech_enhancement_tpu_torch.utils.logging",
@@ -33,6 +36,9 @@ MODULES = [
     "speech_enhancement_tpu_torch.cli.main_diffuse",
     "speech_enhancement_tpu_torch.cli.inference_diffuse",
     "speech_enhancement_tpu_torch.cli.convert_checkpoint",
+    "speech_enhancement_tpu_torch.cli.preprocess",
+    "speech_enhancement_tpu_torch.cli.cdiffuse",
+    "speech_enhancement_tpu_torch.cli.cdiffuse_inference",
 ]
 
 PROBE = """

@@ -39,7 +39,9 @@ MODULES = [
     "speech_enhancement_tpu_torch.train.state",
     "speech_enhancement_tpu_torch.train.gan",
     "speech_enhancement_tpu_torch.train.diffusion",
+    "speech_enhancement_tpu_torch.train.learner",
     "speech_enhancement_tpu_torch.utils",
+    "speech_enhancement_tpu_torch.utils.profiling",
     "speech_enhancement_tpu_torch.utils.convert",
     "speech_enhancement_tpu_torch.utils.device",
     "speech_enhancement_tpu_torch.enhance",
