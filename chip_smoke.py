@@ -133,7 +133,36 @@ line each (timings beside the card's name and power limit):
    bins; hop 256 / 80 bins with ``params``: cycle 8, a 6-step schedule;
    the converted model's outputs equal the source's bit for bit) and
    ``cli.cdiffuse_inference --fast`` on each with ``auto``, ``se`` and
-   ``mel``.
+   ``mel``;
+12. (a) int8 serving convolutions on ``TSCNet(64, 201,
+   fused_attention=True, quantized_convs=True)`` with the float model's
+   seeded weights: each of the 15 int8 convs at its shape in
+   ``enhance_batch([32, 32000])`` (fp32, IEEE), its card route
+   (``torch._int_mm``) against the plain one (the int8 values multiplied
+   as fp32) on the conv's own input: int32 accumulators and outputs
+   equal; one bf16 and one fp32 int8 batch (K1, K4, K5 and the int8 GEMMs
+   launched, counted from zero), each batch's distance from the float
+   model (reported) and its time against the float batch's (CUDA events,
+   median of 10 in turns); the card's int8 model against the CPU's on
+   ``[2, 32000]`` at IEEE (relative RMS, bound :data:`INT8_CARD_CPU_BOUND`);
+   the 15 convs alone on seeded inputs of their shapes, int8 route
+   against cuDNN's conv (``torch.profiler``, bf16 and fp32 inputs).
+   (b) data parallelism on the one card (scp, dropout 0, fp32 at IEEE,
+   fused attention: K1 and K2 fp32; global batch 8 x 1 s, fixed labels):
+   one process in an NCCL group of world 1 bitwise equal to no group;
+   two ranks started with ``spawn`` sharing the card over gloo against one
+   process at the global batch (the generator and discriminator steps,
+   ``diffuse_step`` on DiffuSE 64 x 30 and ``tsc_diffusion_step``:
+   losses, self-correcting weights, gradients, updated parameters and
+   BatchNorm statistics within a relative 1e-4; the ranks' states bitwise
+   equal), and each rank's step time beside one process's (two ranks on
+   one card: no data-parallel speed-up); ``cli.main_gan`` (pipelined,
+   ``--fused-attention``, bf16) and ``cli.main_diffuse -a tsc-diffuse``
+   with ``--num-processes 2`` for one epoch on a corpus as phase 9's
+   (the ranks' replica digests equal, one checkpoint, written by rank 0);
+   ``Enhancer(devices=["cuda:0", "cuda:0"], fused_stft=True)`` on 5
+   ragged utterances against one device (atol 2e-5) and
+   ``cli.inference_gan --n-devices 1`` and ``2`` on the checkpoint.
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -151,9 +180,11 @@ The line before the last is the kernels' JSON record (``launches``: the
 main paths' counts: phases 4 and 7, each zeroed before its path, phase
 9's CLI calls, each counted from before to after it, phase 10's
 kernel-route sampler runs and ``inference_diffuse`` calls, and phase 11's
-``cdiffuse_inference`` calls with the |STFT| conditioner; with
-``launches_by_path``), after phase 9's, 10's and 11's timings as JSON;
-the last is
+``cdiffuse_inference`` calls with the |STFT| conditioner, phase 12's int8
+batches, each zeroed before, and its two ranks' steps (each rank counts
+from zero in its own process) and two-replica ``Enhancer``; with
+``launches_by_path``), after phase 9's, 10's and 11's timings and phase
+12's ``int8_timings`` and ``parallel_timings`` as JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
 last line; with no CUDA device it exits 1 at once.
 
@@ -1971,6 +2002,564 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
     return {"launches": {"K4": k4_path}, "timings": timings}
 
 
+# --------------------------------------------------------------------------
+# phase 12: int8 serving convolutions and data parallelism on the one card
+
+DP_ROWS = 8  # the global batch of the data-parallel checks: 8 x 1 s
+
+
+def kernel_counts() -> dict:
+    """The launch counters of K1, K2, K4 and K5 and of the int8 GEMMs."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+    from speech_enhancement_tpu_torch.ops import int8
+
+    return {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
+            "K2 tensor-core": fa.bwd_mma_launches, "K2 fp32 tensor-core": fa.bwd_tf32_launches,
+            "K4": fs.stft_launches, "K5": fs.istft_launches,
+            "int8 GEMM": int8.LAUNCHES["int8_conv2d"]}
+
+
+def counts_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def int8_phase(card: str) -> dict:
+    """Phase 12 (a): the int8 serving convolutions on a full-width
+    ``TSCNet(64, 201, fused_attention=True, quantized_convs=True)`` with
+    the float model's seeded weights.  Returns the main path's launches
+    (one bf16 and one fp32 int8 ``enhance_batch``) and the timings."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from speech_enhancement_tpu_torch.enhance import Enhancer
+    from speech_enhancement_tpu_torch.models import TSCNet
+    from speech_enhancement_tpu_torch.ops import int8
+
+    t_phase = time.perf_counter()
+    float_model = TSCNet(64, 201, fused_attention=True, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    quant = TSCNet(64, 201, fused_attention=True, quantized_convs=True, device="cuda")
+    quant.load_state_dict(float_model.state_dict())
+    convs = [m for m in quant.modules() if isinstance(m, int8.QuantConv2d)]
+    check(len(convs) == 15, f"TSCNet(quantized_convs=True): {len(convs)} int8 convs (15)")
+    batch = (0.1 * np.random.default_rng(SEED + 30).standard_normal((32, 32000))).astype(
+        np.float32)
+    print(f"[12a int8] TSCNet(64, 201, fused_attention=True, quantized_convs=True), the float "
+          f"model's seeded weights; enhance_batch [32, 32000]; card {card}", flush=True)
+
+    # the 15 convs at the shapes of the fp32 batch (at IEEE): the card's
+    # route (torch._int_mm) against the plain one (the same int8 values
+    # multiplied as fp32, exact below 2^24) on the conv's own input
+    shapes, exact = [], []
+
+    def hold(module, inputs, output):
+        ph, pw = module.padding
+        x = F.pad(inputs[0], (pw, pw, ph, ph))
+        xq, _ = int8.quantize_symmetric(x)
+        wq, _ = int8.quantize_symmetric(module.weight, dim=(1, 2, 3))
+        acc = int8.int8_accumulate(xq, wq, module.stride, module.dilation)
+        acc_plain = int8.int8_accumulate(xq, wq, module.stride, module.dilation, plain=True)
+        y_plain = int8.int8_conv2d(x, module.weight, module.bias, stride=module.stride,
+                                   dilation=module.dilation, plain=True)
+        exact.append((torch.equal(acc, acc_plain), torch.equal(output, y_plain),
+                      int((acc - acc_plain).abs().max())))
+        shapes.append((tuple(x.shape), tuple(module.weight.shape), tuple(module.stride),
+                       tuple(module.dilation)))
+
+    hooks = [m.register_forward_hook(hold) for m in convs]
+    Enhancer(quant, matmul_precision=None, fused_stft=True, device="cuda").enhance_batch(batch)
+    for h in hooks:
+        h.remove()
+    for (xs, ws, st, dl), (acc_ok, out_ok, diff) in zip(shapes, exact):
+        check(acc_ok and out_ok, f"int8 conv x {list(xs)} w {list(ws)} stride {st} dilation "
+                                 f"{dl}: int32 accumulators equal (max |diff| {diff}), output "
+                                 f"equal to the plain route's fp32 rescale")
+    torch.cuda.empty_cache()
+
+    enhancers = {
+        ("int8", "bf16"): Enhancer(quant, compute_dtype=torch.bfloat16, fused_stft=True,
+                                   device="cuda"),
+        ("int8", "fp32"): Enhancer(quant, fused_stft=True, device="cuda"),
+        ("float", "bf16"): Enhancer(float_model, compute_dtype=torch.bfloat16,
+                                    fused_stft=True, device="cuda"),
+        ("float", "fp32"): Enhancer(float_model, fused_stft=True, device="cuda")}
+    # the main path: one int8 batch in each dtype, counts from zero
+    before = kernel_counts()
+    outs = {key: enhancers[key].enhance_batch(batch) for key in (("int8", "bf16"),
+                                                                  ("int8", "fp32"))}
+    torch.cuda.synchronize()
+    launches = counts_since(before)
+    for name in ("K1 tensor-core", "K1 fp32 tensor-core", "K4", "K5", "int8 GEMM"):
+        check(launches[name] > 0, f"{name} launched {launches[name]} times by the int8 "
+                                  f"serving batches (bf16 and fp32)")
+    timings: dict = {"launches": launches}
+    for dtype in ("bf16", "fp32"):
+        want = enhancers[("float", dtype)].enhance_batch(batch)
+        got = outs[("int8", dtype)]
+        dist_ = rel_rms(got, want)
+        check(got.shape == want.shape and np.isfinite(got).all(),
+              f"int8 enhance_batch {dtype}: finite [32, 32000]; relative RMS from the float "
+              f"model {dist_:.4f} (reported; tests/test_int8.py's random-init bound is "
+              f"0.25 at width 16: {'within' if dist_ < 0.25 else 'beyond'} it)")
+        timings[f"int8 vs float rel_rms {dtype}"] = dist_
+        int8_ms, float_ms = time_pair(lambda d=dtype: enhancers[("int8", d)].enhance_batch(batch),
+                                      lambda d=dtype: enhancers[("float", d)].enhance_batch(
+                                          batch), reps=10)
+        timings[f"batch ms {dtype}"] = {"int8": int8_ms, "float": float_ms}
+        print(f"    enhance_batch [32, 32000] {dtype} (matmul_precision default), CUDA events, "
+              f"median of 10 after warm-up, in turns: int8 {int8_ms:.3f} ms, float "
+              f"{float_ms:.3f} ms, int8/float {int8_ms / float_ms:.3f} ({card})", flush=True)
+    del outs, enhancers
+    torch.cuda.empty_cache()
+
+    # the card's int8 model against the CPU's, [2, 32000] at IEEE fp32
+    quant_cpu = TSCNet(64, 201, fused_attention=True, quantized_convs=True, device="cpu")
+    quant_cpu.load_state_dict(quant.state_dict())
+    small = batch[:2]
+    t0 = time.perf_counter()
+    cpu_out = Enhancer(quant_cpu, matmul_precision=None, device="cpu").enhance_batch(small)
+    cpu_s = time.perf_counter() - t0
+    card_out = Enhancer(quant, matmul_precision=None, fused_stft=True,
+                        device="cuda").enhance_batch(small)
+    dist_ = rel_rms(card_out, cpu_out)
+    timings["card vs cpu rel_rms"] = dist_
+    check(np.isfinite(card_out).all() and dist_ < INT8_CARD_CPU_BOUND,
+          f"int8 model [2, 32000] fp32 at IEEE, card (K1, K4, K5, torch._int_mm) vs CPU "
+          f"(plain, {cpu_s:.1f} s): relative RMS {dist_:.3e} (bound {INT8_CARD_CPU_BOUND}: "
+          f"int8 rounding flips at +-0.5 steps from the float layers' rounding)")
+    del quant_cpu
+
+    # the 15 convs alone, each at its shape on seeded inputs: the int8 route
+    # against cuDNN's conv, device time by torch.profiler (3 calls each)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    rows, sums = [], {}
+
+    def profiled_ms(fn, reps: int = 3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key, e.self_device_time_total / 1e3 / reps) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        gemm = sum(ms for key, ms in kernels
+                   if any(s in key.lower() for s in ("gemm", "xmma", "cutlass", "imma")))
+        return sum(ms for _, ms in kernels), gemm, kernels
+
+    with fp32_precision("tf32", "tf32"):  # the serving default for fp32 convs
+        for xs, ws, st, dl in shapes:
+            conv = next(m for m in convs if tuple(m.weight.shape) == ws
+                        and tuple(m.stride) == st and tuple(m.dilation) == dl)
+            entry = {"x": list(xs), "w": list(ws), "stride": list(st), "dilation": list(dl)}
+            for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+                x = torch.randn(xs, device="cuda", generator=gen).to(dtype)
+                w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+                i8, i8_gemm, kernels = profiled_ms(
+                    lambda: int8.int8_conv2d(x, w, b, stride=st, dilation=dl))
+                cudnn, _, _ = profiled_ms(lambda: F.conv2d(x, w, b, st, 0, dl))
+                entry[name] = {"int8_ms": i8, "int8_gemm_ms": i8_gemm, "cudnn_ms": cudnn}
+                for k, v in entry[name].items():
+                    sums[f"{k} {name}"] = sums.get(f"{k} {name}", 0.0) + v
+                if len(rows) == 0 and name == "bf16":
+                    top = sorted(kernels, key=lambda e: -e[1])[:5]
+                    print("    info int8 conv kernels (first conv, bf16): " + "; ".join(
+                        f"{ms:.4f} ms {key[:50]}" for key, ms in top), flush=True)
+                del x
+            rows.append(entry)
+    torch.cuda.empty_cache()
+    for name in ("bf16", "fp32"):
+        print(f"    15 convs by torch.profiler, {name} inputs: int8 route "
+              f"{sums[f'int8_ms {name}']:.3f} ms (of it int8 GEMMs "
+              f"{sums[f'int8_gemm_ms {name}']:.3f} ms), cuDNN conv "
+              f"{sums[f'cudnn_ms {name}']:.3f} ms ({card})", flush=True)
+    timings.update(convs=rows, conv_sums=sums)
+    timings["phase s"] = time.perf_counter() - t_phase
+    print(f"    phase 12a in {timings['phase s']:.1f} s", flush=True)
+    return timings
+
+
+# the card's int8 model against the CPU's on [2, 32000] (fp32, IEEE)
+INT8_CARD_CPU_BOUND = 0.1
+
+
+def dp_gan_state(device, dtype=torch.float32):
+    """Full-width scp models from seeds, every dropout rate 0, SGD lr 1e-3;
+    in fp32 the time conformers' attention on K1 and K2, in float64 (which
+    they do not take) the plain attention."""
+    from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
+    from speech_enhancement_tpu_torch.train import create_gan_state
+
+    gen_model = no_dropout(TSCNet(64, 201, fused_attention=dtype == torch.float32,
+                                  device=device,
+                                  generator=torch.Generator().manual_seed(SEED + 40)))
+    disc = Discriminator(16, dropout=0.0, device=device,
+                         generator=torch.Generator().manual_seed(SEED + 41))
+    return create_gan_state(gen_model.to(dtype), disc.to(dtype), "sgd", 1e-3)
+
+
+def dp_inputs(device):
+    """The global batch (8 x 1 s, fixed labels as in
+    tests/distributed_trainstep_common.py) and the diffusion draws."""
+    (clean, noisy), = make_batches(np.random.default_rng(SEED + 42), 1, batch=DP_ROWS)
+    rng = np.random.default_rng(SEED + 43)
+    labels = [torch.from_numpy(a).to(device) for a in (
+        np.linspace(0.4, 0.9, DP_ROWS, dtype=np.float32), np.ones(DP_ROWS, np.float32),
+        np.linspace(0.2, 0.5, DP_ROWS, dtype=np.float32))]
+    t = torch.from_numpy(rng.integers(0, 50, DP_ROWS)).to(device)
+    noise = torch.from_numpy(rng.standard_normal((DP_ROWS, SR)).astype(np.float32)).to(device)
+    return clean.to(device), noisy.to(device), labels, t, noise
+
+
+def dp_steps(rows: slice, timed: int = 0, diffusion: bool = True,
+             dtype=torch.float32) -> dict:
+    """On ``rows`` of the global batch, in ``dtype`` (fp32 at IEEE, or
+    float64): one scp generator step and one discriminator step (in fp32
+    K1 and K2), one ``diffuse_step``
+    (DiffuSE 64 x 30) and one ``tsc_diffusion_step``, each from fresh
+    seeded state: losses, self-correcting weights, gradients (as the
+    optimizers take them) and the new state_dicts on the CPU, the grad
+    norm, the launch counts; then ``timed`` more GAN step pairs, CUDA
+    events around each."""
+    from speech_enhancement_tpu_torch.train import (
+        ModuleState,
+        build_optimizer,
+        diffuse_step,
+        gan,
+        l1_loss,
+        l2_loss,
+        linear_noise_schedule,
+        tsc_diffusion_step,
+    )
+
+    full_fp32()
+    clean, noisy, labels, t, noise = dp_inputs("cuda")
+    clean, noisy, noise = (a[rows].to(dtype) for a in (clean, noisy, noise))
+    t = t[rows]
+    labels = [q[rows].to(dtype) for q in labels]
+    before = kernel_counts()
+    state = dp_gan_state("cuda", dtype)
+    grads = read_grads(state.gen_opt, state.gen)
+    disc_grads = read_grads(state.disc_opt, state.disc)
+    with sc_weight_trace() as seen:
+        aux = gan.gan_generator_step(state, clean, noisy, 1, criterion=l2_loss, arch="scp")
+        disc_loss = gan.gan_discriminator_step(state, aux, *labels, 2, criterion=l2_loss,
+                                               arch="scp")
+    # copies: later steps update the state in place
+    cpu = lambda d: {k: v.detach().to("cpu", copy=True) for k, v in d.items()}  # noqa: E731
+    out = {"metrics": {k: float(v) for k, v in aux.metrics.items()},
+           "disc_loss": float(disc_loss), "weights": seen[-1][1].cpu(),
+           "grads": cpu({**{f"gen.{k}": v for k, v in grads.items()},
+                         **{f"disc.{k}": v for k, v in disc_grads.items()}}),
+           "state": cpu({**{f"gen.{k}": v for k, v in state.gen.state_dict().items()},
+                         **{f"disc.{k}": v for k, v in state.disc.state_dict().items()}})}
+    sched = linear_noise_schedule(50).astype(np.float32)
+    for name, model in (diffusion_models("cuda") if diffusion else {}).items():
+        model = no_dropout(model).to(dtype)
+        mstate = ModuleState(model, build_optimizer("sgd", 1e-3, model))
+        mgrads = read_grads(mstate.opt, model)
+        if name == "diffuse":
+            loss, norm = diffuse_step(mstate, clean, noisy, sched, 0, criterion=l1_loss,
+                                      t=t, noise=noise, return_grad_norm=True)
+            out["diffuse grad_norm"] = float(norm)
+        else:
+            loss = tsc_diffusion_step(mstate, clean, noisy, sched, 0, t=t, noise=noise)
+        out[name] = {"loss": float(loss), "grads": cpu(mgrads), "state": cpu(model.state_dict())}
+        del model, mstate, mgrads
+    torch.cuda.synchronize()
+    out["launches"] = counts_since(before)
+    step_ms = []
+    for _ in range(timed):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        aux = gan.gan_generator_step(state, clean, noisy, 1, criterion=l2_loss, arch="scp")
+        gan.gan_discriminator_step(state, aux, *labels, 2, criterion=l2_loss, arch="scp")
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    out["step_ms"] = step_ms
+    return out
+
+
+def _dp_rank(process_id: int, world: int, coordinator: str, out_dir: str) -> None:
+    """One rank of phase 12 (b)'s two-process check: joins the group (two
+    ranks on one card: gloo), runs :func:`dp_steps` on its rows and saves
+    the result to ``out_dir/rank{process_id}.pt``."""
+    import os
+
+    from speech_enhancement_tpu_torch import parallel
+
+    backend = parallel.init_distributed(coordinator, world, process_id, "cuda:0")
+    try:
+        idx = parallel.shard_rows(np.arange(DP_ROWS))
+        rows = slice(int(idx[0]), int(idx[-1]) + 1)
+        out = {"fp32": dp_steps(rows, timed=3), "float64": dp_steps(rows, dtype=torch.float64),
+               "backend": backend}
+    finally:
+        parallel.destroy()
+    torch.save(out, os.path.join(out_dir, f"rank{process_id}.pt"))
+
+
+def _world1_rank(process_id: int, world: int, coordinator: str, out_dir: str) -> None:
+    """Phase 12 (b) 1: with deterministic algorithms, the GAN steps twice
+    without a group, then once in an NCCL group of world 1, counting the
+    collectives issued; saved to ``out_dir/world1.pt`` with the ops that
+    warned of no deterministic version."""
+    import os
+    import warnings
+
+    import torch.distributed as dist
+
+    from speech_enhancement_tpu_torch import parallel
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        alone = [dp_steps(slice(0, DP_ROWS), diffusion=False) for _ in range(2)]
+        store = dist.TCPStore("127.0.0.1", parallel.free_port(), 1, is_master=True)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device("cuda:0"))
+        calls = {"all_reduce": 0, "broadcast": 0}
+        real = {name: getattr(dist, name) for name in calls}
+
+        def counted(name):
+            def call(*args, **kwargs):
+                calls[name] += 1
+                return real[name](*args, **kwargs)
+            return call
+
+        for name in calls:
+            setattr(dist, name, counted(name))
+        try:
+            grouped = dp_steps(slice(0, DP_ROWS), diffusion=False)
+        finally:
+            for name in calls:
+                setattr(dist, name, real[name])
+            dist.destroy_process_group()
+    nondeterministic = sorted({str(w.message)[:120] for w in caught
+                               if "deterministic" in str(w.message)})
+    torch.save({"alone": alone, "grouped": grouped, "calls": calls,
+                "nondeterministic": nondeterministic}, os.path.join(out_dir, "world1.pt"))
+
+
+def dp_distances(got: dict, want: dict) -> dict:
+    """Relative distances of a data-parallel result from one process's."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+
+    def flat(d, keys):
+        return torch.cat([d[k].double().reshape(-1) for k in keys])
+
+    gen_keys = [k for k in want["grads"] if k.startswith("gen.")]
+    disc_keys = [k for k in want["grads"] if k.startswith("disc.")]
+    float_state = [k for k, v in want["state"].items() if v.is_floating_point()]
+    bn = [k for k in float_state if k.endswith(("running_mean", "running_var"))]
+    out = {"gen loss": rel(got["metrics"]["loss"], want["metrics"]["loss"]),
+           "disc loss": rel(got["disc_loss"], want["disc_loss"]),
+           "sc weights": rel_rms_t(got["weights"], want["weights"]),
+           "gen grads": rel_rms_t(flat(got["grads"], gen_keys), flat(want["grads"], gen_keys)),
+           "disc grads": rel_rms_t(flat(got["grads"], disc_keys),
+                                   flat(want["grads"], disc_keys)),
+           "params": rel_rms_t(flat(got["state"], float_state), flat(want["state"], float_state)),
+           "bn running stats": rel_rms_t(flat(got["state"], bn), flat(want["state"], bn))}
+    for name in ("diffuse", "tsc-diffuse"):
+        g, w = got[name], want[name]
+        keys = list(w["grads"])
+        out[f"{name} loss"] = rel(g["loss"], w["loss"])
+        out[f"{name} grads"] = rel_rms_t(flat(g["grads"], keys), flat(w["grads"], keys))
+        fs_ = [k for k, v in w["state"].items() if v.is_floating_point()]
+        out[f"{name} params"] = rel_rms_t(flat(g["state"], fs_), flat(w["state"], fs_))
+    out["diffuse grad_norm"] = rel(got["diffuse grad_norm"], want["diffuse grad_norm"])
+    return out
+
+
+def parallel_phase(card: str, user_precision: tuple) -> dict:
+    """Phase 12 (b): data parallelism on the one card.  Returns the launches
+    of the two ranks' steps and of the two-replica Enhancer, and the
+    timings."""
+    import gc
+    import os
+    import tempfile
+
+    from speech_enhancement_tpu_torch import parallel
+    from speech_enhancement_tpu_torch.cli import inference_gan, main_diffuse, main_gan
+    from speech_enhancement_tpu_torch.enhance import Enhancer
+    from speech_enhancement_tpu_torch.models import TSCNet
+
+    t_phase = time.perf_counter()
+    timings: dict = {}
+    print(f"[12b data parallel] scp TSCNet(64, 201, fused_attention=True) + "
+          f"Discriminator(16), dropout 0, fp32 at IEEE, global batch {DP_ROWS} x 1 s, fixed "
+          f"labels; DiffuSE 64 x 30 and DiffusionTSCNet(64); card {card}", flush=True)
+
+    # 1. one process in an NCCL group of world 1 against no group, in a
+    # process of its own with deterministic algorithms (cuBLAS's workspace
+    # set before its first handle).  Two backward ops of the step have no
+    # deterministic CUDA version, so its gradients differ from run to run in
+    # the last bits with or without a group: the forward (losses, BatchNorm
+    # running statistics) is held bitwise, the collectives issued must be
+    # none, and the gradients' distance is printed beside the run-to-run one
+    def forward_same(a, b) -> bool:
+        bn = [k for k in a["state"] if k.endswith(("running_mean", "running_var"))]
+        return a["metrics"] == b["metrics"] and all(torch.equal(a["state"][k], b["state"][k])
+                                                   for k in bn)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_")
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        parallel.spawn(_world1_rank, 1, tmp.name)
+    finally:
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    runs = torch.load(os.path.join(tmp.name, "world1.pt"), weights_only=False)
+    alone, grouped = runs["alone"], runs["grouped"]
+
+    def grads_rel(a, b) -> float:
+        keys = list(b["grads"])
+        return rel_rms_t(torch.cat([a["grads"][k].double().reshape(-1) for k in keys]),
+                         torch.cat([b["grads"][k].double().reshape(-1) for k in keys]))
+
+    print(f"    info deterministic algorithms; ops that warned of no deterministic version: "
+          f"{runs['nondeterministic'] or 'none'}; gradients, run to run without a group "
+          f"{grads_rel(alone[1], alone[0]):.3e}, with the group against without "
+          f"{grads_rel(grouped, alone[0]):.3e} (relative RMS)", flush=True)
+    check(forward_same(alone[1], alone[0]) and forward_same(grouped, alone[0])
+          and sum(runs["calls"].values()) == 0,
+          f"an NCCL group of world 1: the scp steps' losses and BatchNorm running statistics "
+          f"bitwise equal to the same steps without a group (and to a second run without), "
+          f"collectives issued {runs['calls']}")
+    del runs, alone, grouped
+    one = {"fp32": dp_steps(slice(0, DP_ROWS), timed=3),
+           "float64": dp_steps(slice(0, DP_ROWS), dtype=torch.float64)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2-3. two ranks sharing the card over gloo against one process
+    t0 = time.perf_counter()
+    parallel.spawn(_dp_rank, 2, tmp.name)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp.name, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    tmp.cleanup()
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"two ranks on one card joined over {ranks[0]['backend']} (gloo: NCCL refuses two "
+          f"ranks on one device)")
+    # float64 (plain attention): the semantics, to 1e-5; fp32 with K1 and K2:
+    # within 1e-4, or, where the network amplifies rounding, within 3x the
+    # fp32 step's own distance from the float64 one measured here
+    exact = dp_distances(ranks[0]["float64"], one["float64"])
+    floor = dp_distances(one["fp32"], one["float64"])
+    fp32 = dp_distances(ranks[0]["fp32"], one["fp32"])
+    timings["two ranks vs one process"] = {"float64": exact, "fp32": fp32,
+                                           "fp32 one process vs float64": floor}
+    for name, d in exact.items():
+        check(d <= 1e-5, f"float64, two ranks x {DP_ROWS // 2} rows vs one process x "
+                         f"{DP_ROWS}: {name} relative {d:.3e} (bound 1e-5)")
+    for name, d in fp32.items():
+        limit = max(1e-4, 3 * floor[name])
+        check(d <= limit, f"fp32 (K1, K2), two ranks vs one process: {name} relative {d:.3e} "
+                          f"(bound {limit:.3e}: 1e-4, or 3x the one-process fp32 step's "
+                          f"distance from float64, {floor[name]:.3e})")
+    for key in ("fp32", "float64"):
+        a, b = ranks[0][key], ranks[1][key]
+        equal = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+        equal &= all(torch.equal(a[m]["state"][k], b[m]["state"][k])
+                     for m in ("diffuse", "tsc-diffuse") for k in a[m]["state"])
+        check(equal, f"{key}: the two ranks' updated GAN, DiffuSE and diffusion-TSCNet states "
+                     f"are bitwise equal")
+    launches = {k: ranks[0]["fp32"]["launches"][k] + ranks[1]["fp32"]["launches"][k]
+                for k in ranks[0]["fp32"]["launches"]}
+    for name in ("K1 fp32 tensor-core", "K2 fp32 tensor-core"):
+        check(launches[name] > 0, f"{name} launched {launches[name]} times by the two ranks' "
+                                  f"steps")
+    one_ms = one["fp32"]["step_ms"]
+    rank_ms = [r["fp32"]["step_ms"] for r in ranks]
+    timings["step ms"] = {"rank 0": rank_ms[0], "rank 1": rank_ms[1], "one process": one_ms}
+    print(f"    scp step pair, fp32 IEEE: two ranks of {DP_ROWS // 2} rows sharing the card "
+          f"{statistics.median(rank_ms[0]):.1f} / "
+          f"{statistics.median(rank_ms[1]):.1f} ms, one process of {DP_ROWS} rows "
+          f"{statistics.median(one_ms):.1f} ms (medians of 3; two ranks on one card share "
+          f"its SMs: no data-parallel speed-up is measured here); the two-rank spawn took "
+          f"{spawn_s:.1f} s ({card})", flush=True)
+    del ranks, one
+
+    # 4. the training CLIs with --num-processes 2 on phase 9's corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dp_cli_")
+    root = tmp.name
+    overlay = write_corpus(root, np.random.default_rng(SEED))
+    with fp32_precision(*user_precision):
+        for label, entry, argv in (
+                ("cli.main_gan", main_gan,
+                 ["-a", "scp", "--step-mode", "pipelined", "--fused-attention", "--precision",
+                  "bf16"]),
+                ("cli.main_diffuse", main_diffuse, ["-a", "tsc-diffuse"])):
+            arch = argv[1]
+            out = os.path.join(root, arch)
+            t0 = time.perf_counter()
+            history = entry.main([*argv, "--cfg", overlay, "--output", out, "--seed", "0",
+                                  "--epochs", "1", "--num-processes", "2"])
+            epoch_s = time.perf_counter() - t0
+            run = os.path.join(out, arch, "default")
+            logs = [open(os.path.join(run, f"log_rank{r}.txt")).read() for r in range(2)]
+            digests = [[line.split("replicas: ", 1)[1] for line in log.splitlines()
+                        if "replicas: " in line] for log in logs]
+            ckpts = sorted(p for p in os.listdir(run) if p.startswith("checkpoint_"))
+            losses = (history[0]["train"].gen_losses if arch == "scp"
+                      else history[0]["train_losses"])
+            check(len(history) == 1 and losses and all(math.isfinite(x) for x in losses)
+                  and digests[0] and digests[0] == digests[1] and ckpts == ["checkpoint_0000"]
+                  and "saved checkpoint_0000" in logs[0]
+                  and "saved checkpoint_0000" not in logs[1],
+                  f"{label} {' '.join(argv)} --num-processes 2, one epoch ({epoch_s:.1f} s, "
+                  f"spawn included): rank 0's losses {', '.join(f'{x:.4g}' for x in losses)}; "
+                  f"both ranks' replica digests {digests[0][-1][:40] if digests[0] else None}... "
+                  f"equal; checkpoints {ckpts}, written by rank 0 alone")
+            timings[f"{label} epoch s"] = epoch_s
+
+        # 5. serving on two replicas of one card; the inference CLI
+        gen_model = TSCNet(64, 201, fused_attention=True, device="cuda",
+                           generator=torch.Generator().manual_seed(SEED + 44))
+        rng = np.random.default_rng(SEED + 45)
+        utts = [(0.1 * rng.standard_normal(n)).astype(np.float32)
+                for n in (16000, 23100, 31900, 40000, 47700)]
+        before = kernel_counts()
+        got = Enhancer(gen_model, matmul_precision="float32", fused_stft=True,
+                       devices=["cuda:0", "cuda:0"]).enhance(utts, batch_size=5)
+        serving = counts_since(before)
+        want = Enhancer(gen_model, matmul_precision="float32", fused_stft=True,
+                        device="cuda").enhance(utts, batch_size=5)
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        check(err <= 2e-5, f"Enhancer(devices=['cuda:0', 'cuda:0'], fused_stft=True) on 5 "
+                           f"ragged utterances (6 rows, 3 + 3) vs one device: max abs "
+                           f"{err:.3e} (atol 2e-5, as tests/test_parallel.py)")
+        for name in ("K1 fp32 tensor-core", "K4", "K5"):
+            launches[name] += serving[name]
+        metrics = {}
+        for n in (1, 2):
+            metrics[n] = inference_gan.main([
+                "--cfg", overlay, "-m", os.path.join(root, "scp", "scp", "default",
+                                                     "model_best"),
+                "-o", os.path.join(root, f"enhanced_{n}"), "--n-devices", str(n)])
+        diff = float(np.abs(np.asarray(metrics[1]) - np.asarray(metrics[2])).max())
+        check(np.isfinite(metrics[1]).all() and np.isfinite(metrics[2]).all() and diff < 1e-3,
+              f"cli.inference_gan --n-devices 1 on rank 0's checkpoint: six finite metrics "
+              f"{', '.join(f'{x:.3f}' for x in metrics[1])}; --n-devices 2 (two replicas on "
+              f"the card) within {diff:.2e} of them")
+    tmp.cleanup()
+    timings["launches"] = launches
+    timings["phase s"] = time.perf_counter() - t_phase
+    print(f"    phase 12b in {timings['phase s']:.1f} s; launches of the two ranks' steps and "
+          f"the two-replica Enhancer {launches}", flush=True)
+    return timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2350,6 +2939,9 @@ def main() -> int:
     diffusion = diffusion_phase(card, user_precision)
     # 11. standalone CDiffuSE
     cdiffuse = cdiffuse_phase(card, user_precision)
+    # 12. int8 serving convolutions; data parallelism on the one card
+    int8_t = int8_phase(card)
+    parallel_t = parallel_phase(card, user_precision)
     print(f"[done] {time.perf_counter() - started:.1f} s, build included", flush=True)
 
     if FAILURES:
@@ -2358,13 +2950,16 @@ def main() -> int:
     pkg = "speech_enhancement_tpu_torch"
     tl, el = train["launches"], entry["launches"]
 
-    def by_path(serving, training, entry_points, diffusion=None, cdiffuse=None):
+    def by_path(serving, training, entry_points, diffusion=None, cdiffuse=None, name=None):
         paths = {"serving (phase 4)": serving, "training (phase 7)": training,
                  "entry points (phase 9)": entry_points}
         if diffusion is not None:
             paths["diffusion (phase 10)"] = diffusion
         if cdiffuse is not None:
             paths["cdiffuse (phase 11)"] = cdiffuse
+        if name is not None:  # phase 12's paths
+            paths["int8 serving (phase 12)"] = int8_t["launches"][name]
+            paths["data parallel (phase 12)"] = parallel_t["launches"][name]
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
@@ -2373,13 +2968,14 @@ def main() -> int:
         {"name": "shaw_attention_fwd_tensor_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_mma.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         **by_path(launches["K1 tensor-core"], tl["K1 tensor-core"], el["K1 tensor-core"]),
+         **by_path(launches["K1 tensor-core"], tl["K1 tensor-core"], el["K1 tensor-core"],
+                   name="K1 tensor-core"),
          "max_abs_err": errs["K1mma"], **rows["K1mma"]},
         {"name": "shaw_attention_fwd_tf32", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_tf32.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
          **by_path(launches["K1 fp32 tensor-core"], tl["K1 fp32 tensor-core"],
-                   el["K1 fp32 tensor-core"]),
+                   el["K1 fp32 tensor-core"], name="K1 fp32 tensor-core"),
          "max_abs_err": errs["K1tf32"], **rows["K1tf32"]},
         {"name": "shaw_attention_fwd_cuda_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention.cu",
@@ -2391,13 +2987,14 @@ def main() -> int:
         {"name": "shaw_attention_bwd_tensor_core", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd_mma.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         **by_path(0, tl["K2 tensor-core"], el["K2 tensor-core"]),
+         **by_path(0, tl["K2 tensor-core"], el["K2 tensor-core"], name="K2 tensor-core"),
          "max_abs_err": train["errs"]["K2mma"],
          **train["rows"]["K2mma"]},
         {"name": "shaw_attention_bwd_tf32", "route": "cuda",
          "source": f"{pkg}/csrc/shaw_attention_bwd_tf32.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         **by_path(0, tl["K2 fp32 tensor-core"], el["K2 fp32 tensor-core"]),
+         **by_path(0, tl["K2 fp32 tensor-core"], el["K2 fp32 tensor-core"],
+                   name="K2 fp32 tensor-core"),
          "max_abs_err": train["errs"]["K2tf32"],
          **train["rows"]["K2tf32"]},
         {"name": "shaw_attention_bwd_cuda_core", "route": "cuda",
@@ -2410,11 +3007,11 @@ def main() -> int:
         {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
          **by_path(launches["K4"], 0, el["K4"], diffusion["launches"]["K4"],
-                   cdiffuse["launches"]["K4"]),
+                   cdiffuse["launches"]["K4"], name="K4"),
          "max_abs_err": errs["K4"], **rows["K4"]},
         {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
-         **by_path(launches["K5"], 0, el["K5"], diffusion["launches"]["K5"]),
+         **by_path(launches["K5"], 0, el["K5"], diffusion["launches"]["K5"], name="K5"),
          "max_abs_err": errs["K5"], **rows["K5"]},
         {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
@@ -2423,6 +3020,8 @@ def main() -> int:
     print(json.dumps({"entry_point_timings": entry["timings"]}))
     print(json.dumps({"diffusion_timings": diffusion["timings"]}))
     print(json.dumps({"cdiffuse_timings": cdiffuse["timings"]}))
+    print(json.dumps({"int8_timings": int8_t}))
+    print(json.dumps({"parallel_timings": parallel_t}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

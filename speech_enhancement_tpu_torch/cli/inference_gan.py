@@ -9,7 +9,8 @@ STOI) averaged over the files; ``--save`` writes the enhanced wavs,
 the best epoch by PESQ.  Clean and noisy files are paired by basename.
 ``--fused-attention`` (``auto``: on when the device is ``cuda``) routes
 the time conformers' attention through K1 and the featurization through
-K4 and K5.
+K4 and K5.  ``--n-devices n`` splits every batch over n model replicas
+(``Enhancer(devices=...)``), as the JAX CLI's mesh does.
 
 Usage:
   python -m speech_enhancement_tpu_torch.cli.inference_gan \\
@@ -31,6 +32,7 @@ from speech_enhancement_tpu_torch.data import load_wav, save_wav
 from speech_enhancement_tpu_torch.enhance import Enhancer
 from speech_enhancement_tpu_torch.metrics import compute_metrics
 from speech_enhancement_tpu_torch.models import TSCNet
+from speech_enhancement_tpu_torch.parallel import rank_device
 from speech_enhancement_tpu_torch.utils import load_variables, sweep_checkpoints
 from speech_enhancement_tpu_torch.utils.device import resolve_device
 
@@ -52,6 +54,11 @@ def parse_option(argv=None):
                         help="serving compute dtype")
     parser.add_argument("--device", default=None,
                         help="torch device; default cuda (raises without a card)")
+    parser.add_argument("--n-devices", default=None, type=int,
+                        help="split each enhancement batch over this many devices, one "
+                             "model replica each: the host's cards in turn (two replicas "
+                             "share a card when there are more than cards; with --device "
+                             "cpu all on the CPU); default one device")
     parser.add_argument("--opts", default=None, nargs="+")
     args = parser.parse_args(argv)
     config = get_config(args)
@@ -78,9 +85,12 @@ def inference(args, config, model_path, data_paths) -> np.ndarray:
     device = resolve_device(args.device)
     fused = _use_fused(args.fused_attention, device)
     gen = load_model(model_path, config, fused=fused, device=device)
+    placement = dict(device=device)
+    if args.n_devices and args.n_devices > 1:
+        placement = dict(devices=[rank_device(args.device, i) for i in range(args.n_devices)])
     enhancer = Enhancer(gen, config.N_FFT, config.HOP_SAMPLES,
                         compute_dtype=torch.bfloat16 if args.precision == "bf16" else None,
-                        fused_stft=fused, device=device)
+                        fused_stft=fused, **placement)
     noisy_sigs, clean_sigs = [], []
     for noisy_path in data_paths:
         clean_path = os.path.join(config.DATA.TEST_CLEAN_DIR, os.path.basename(noisy_path))

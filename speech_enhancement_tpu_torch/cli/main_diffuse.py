@@ -14,11 +14,19 @@ SIGTERM/SIGINT.  Step ``idx`` of epoch ``epoch`` takes its seed from
 that a resumed run draws what a run straight through drew; the epoch and
 the best loss are part of the checkpoint, so ``--resume auto`` starts at
 the epoch after the saved one.  Every validation utterance counts (the
-tail batch is kept, not dropped).  One process trains on one device:
-``--device`` (default ``cuda``; ``cpu`` runs on the CPU); the
-data-parallel flags (``--n-devices``, ``--coordinator``,
-``--num-processes``, ``--process-id``) take one process on one device
-only.  ``--debug`` turns on autograd's anomaly detection.
+tail batch is kept, not dropped).  ``--device`` (default ``cuda``;
+``cpu`` runs on the CPU).  ``--debug`` turns on autograd's anomaly
+detection.
+
+Data parallel: ``--n-devices n`` or ``--num-processes P`` (with
+``--process-id`` and ``--coordinator`` for ranks started by hand) run one
+rank per device, with the JAX run's global batch on the same flags
+(``parallel/launch.py``), as ``cli/main_gan.py`` does: each rank trains on
+its shard of the files and averages its gradients with the others'
+(``train/diffusion.py``), a batch whose rows differ between the ranks is
+skipped by all, validation splits every global batch over the ranks and
+sums the losses' row sums, rank 0 writes the checkpoints, and a resumed or
+``--init-from`` state is broadcast from rank 0.
 
 Usage:
   python -m speech_enhancement_tpu_torch.cli.main_diffuse -a tsc-diffuse \\
@@ -28,6 +36,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -36,6 +45,20 @@ import torch
 from speech_enhancement_tpu_torch.config import get_config
 from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset
 from speech_enhancement_tpu_torch.models import DiffuSE, DiffusionTSCNet
+from speech_enhancement_tpu_torch.parallel import (
+    any_rank,
+    barrier,
+    broadcast_state_,
+    check_replicas,
+    destroy,
+    host_sum,
+    init_distributed,
+    launch,
+    rank_device,
+    same_on_all_ranks,
+    shard_rows,
+    spawn,
+)
 from speech_enhancement_tpu_torch.train import (
     ModuleState,
     build_criterion,
@@ -94,20 +117,16 @@ def parse_option(argv=None):
                         help="torch device; default cuda (raises without a card)")
     parser.add_argument("--debug", action="store_true",
                         help="autograd anomaly detection (the op that made a NaN raises)")
-    parser.add_argument("--n-devices", default=None, type=int)
-    parser.add_argument("--coordinator", default=None, type=str)
-    parser.add_argument("--num-processes", default=None, type=int)
-    parser.add_argument("--process-id", default=None, type=int)
+    launch.add_arguments(parser)
     args = parser.parse_args(argv)
     if args.init_from and args.resume:
         parser.error("--init-from and --resume are mutually exclusive: one seeds weights "
                      "only, the other restores the full training state")
-    if (args.n_devices not in (None, 1) or args.num_processes not in (None, 1)
-            or args.process_id not in (None, 0) or args.coordinator):
-        parser.error("data-parallel training is not ported yet: one process trains on one "
-                     "device (--n-devices 1, --num-processes 1, --process-id 0, no "
-                     "--coordinator)")
     config = get_config(args)
+    try:
+        args.world, args.rank_batch = launch.layout(args, config.DATA.BATCH_SIZE)
+    except ValueError as exc:
+        parser.error(str(exc))
     return args, config
 
 
@@ -126,14 +145,33 @@ def build_model(args, config, device=None) -> torch.nn.Module:
                            device=device, generator=generator)
 
 
+def _rank_main(process_id: int, world: int, coordinator: str, argv: list[str]):
+    return main(launch.rank_argv(argv, process_id, coordinator))
+
+
 def main(argv=None) -> list[dict]:
     """Train; returns one record per epoch run: ``{"epoch", "train_losses"
-    (each step's), "train_loss", "valid_loss", "is_best"}``."""
+    (each step's), "train_loss", "valid_loss", "is_best"}`` (rank 0's, when
+    this call started the ranks)."""
     args, config = parse_option(argv)
-    device = resolve_device(args.device)
+    if args.world > 1 and args.process_id is None:
+        return spawn(_rank_main, args.world, list(sys.argv[1:] if argv is None else argv))
+    rank = args.process_id or 0
+    device = rank_device(args.device, rank) if args.world > 1 else resolve_device(args.device)
+    backend = init_distributed(args.coordinator, args.world, rank, device)
+    try:
+        return train(args, config, device, rank, backend)
+    finally:
+        if backend is not None:
+            destroy()
+
+
+def train(args, config, device: torch.device, rank: int, backend: str | None) -> list[dict]:
+    """The body of :func:`main` on this rank's ``device``."""
     seed = args.seed or 0
-    logger = create_logger(config.OUTPUT, dist_rank=0, name=args.arch)
-    logger.info(f"device: {device}, arch: {args.arch}")
+    logger = create_logger(config.OUTPUT, dist_rank=rank, name=args.arch)
+    logger.info(f"device: {device}, arch: {args.arch}, ranks: {args.world} "
+                f"({backend or 'one process'}), {args.rank_batch} rows a rank")
 
     model = build_model(args, config, device)
     criterion = build_criterion(args.criterion)
@@ -149,10 +187,13 @@ def main(argv=None) -> list[dict]:
         return Collator(config.HOP_SAMPLES, config.CROP_FRAMES, config.CROP_LEN,
                         rng=np.random.default_rng(args.seed))
 
-    train_loader = DataLoader(train_ds, config.DATA.BATCH_SIZE, collator(), shuffle=True,
-                              seed=seed, num_workers=args.workers)
-    valid_loader = DataLoader(valid_ds, config.DATA.BATCH_SIZE, collator(), shuffle=False,
-                              num_workers=args.workers, drop_last=False)
+    # each rank trains on its shard of the files and validates its rows of
+    # every global batch
+    train_loader = DataLoader(train_ds, args.rank_batch, collator(), shuffle=True,
+                              seed=seed, shard_id=rank, num_shards=args.world,
+                              num_workers=args.workers)
+    valid_loader = DataLoader(valid_ds, args.rank_batch * args.world, collator(),
+                              shuffle=False, num_workers=args.workers, drop_last=False)
 
     iters_per_epoch = max(len(train_loader), 1)
     sched = config.TRAIN.SCHEDULER
@@ -161,7 +202,7 @@ def main(argv=None) -> list[dict]:
     state = ModuleState(model, build_optimizer(args.optimizer, lr, model, args.momentum,
                                                args.weight_decay, args.max_norm))
 
-    start_epoch = args.start_epoch
+    state.epoch = args.start_epoch
     if args.init_from:
         model.load_state_dict(load_variables(args.init_from)["model"])
         logger.info(f"=> model weights initialized from {args.init_from} "
@@ -170,8 +211,17 @@ def main(argv=None) -> list[dict]:
         path = latest_checkpoint(config.OUTPUT) if args.resume == "auto" else args.resume
         if path:
             state.load_state_dict(load_checkpoint(path))
-            start_epoch = state.epoch
-            logger.info(f"=> resumed from {path} (epoch {start_epoch})")
+            logger.info(f"=> resumed from {path} (epoch {state.epoch})")
+    # every rank starts from rank 0's weights, optimizer state and counters
+    broadcast_state_(state)
+    barrier()
+    start_epoch = state.epoch
+
+    def checkpoint(epoch: int, **kw):
+        """Rank 0 writes, every rank waits for it."""
+        if rank == 0:
+            save_checkpoint(state.state_dict(), config.OUTPUT, epoch, **kw)
+        barrier()
 
     def run_step(clean, noisy, step_seed_, train):
         clean, noisy = (torch.from_numpy(a).to(device) for a in (clean, noisy))
@@ -195,7 +245,7 @@ def main(argv=None) -> list[dict]:
                 idx = -1
                 for idx, batch in enumerate(train_loader):
                     b = batch.audio.shape[0]
-                    if b == 0:
+                    if not same_on_all_ranks(b) or b == 0:
                         continue
                     loss = float(run_step(batch.audio, batch.noisy,
                                           step_seed(seed, epoch, idx), True))
@@ -205,9 +255,9 @@ def main(argv=None) -> list[dict]:
                     meter.update(loss, b)
                     batch_meter.update(time.time() - t_end)
                     t_end = time.time()
-                    if guard.should_stop:
+                    if any_rank(guard.should_stop):
                         state.epoch = epoch  # the interrupted epoch runs again on resume
-                        save_checkpoint(state.state_dict(), config.OUTPUT, epoch)
+                        checkpoint(epoch)
                         logger.info(f"=> preemption checkpoint_{epoch:04d} saved; resume "
                                     "with --resume auto")
                         return history
@@ -216,23 +266,31 @@ def main(argv=None) -> list[dict]:
                                     f"\ttime {batch_meter.val:.4f} ({batch_meter.avg:.4f})\t"
                                     f"loss {meter}")
 
-                vmeter = AverageMeter()
+                loss_sum = count = 0.0
                 for vidx, batch in enumerate(valid_loader, start=idx + 1):
-                    b = batch.audio.shape[0]
+                    # this rank's rows of the global batch (rows that do not
+                    # divide go to the first ranks; a rank may have none)
+                    clean, noisy = shard_rows(batch.audio), shard_rows(batch.noisy)
+                    b = clean.shape[0]
                     if b == 0:
                         continue
-                    vmeter.update(float(run_step(batch.audio, batch.noisy,
-                                                 step_seed(seed, epoch, vidx), False)), b)
+                    loss_sum += float(run_step(clean, noisy, step_seed(seed, epoch, vidx),
+                                               False)) * b
+                    count += b
+                loss_sum, count = host_sum([loss_sum, count])
+                valid_loss = loss_sum / max(count, 1)
 
-                is_best = vmeter.avg <= state.best_loss
-                state.best_loss = min(vmeter.avg, state.best_loss)
+                is_best = valid_loss <= state.best_loss
+                state.best_loss = min(valid_loss, state.best_loss)
                 state.epoch = epoch + 1
-                save_checkpoint(state.state_dict(), config.OUTPUT, epoch, is_best,
-                                variables=state.variables())
-                logger.info(f"=> saved checkpoint_{epoch:04d} (best={is_best})")
-                logger.info(f"Train Loss {meter.avg:.4f}  Valid Loss {vmeter.avg:.4f}")
+                if args.world > 1:
+                    logger.info(f"replicas: {check_replicas(state.model)}")
+                checkpoint(epoch, is_best=is_best, variables=state.variables())
+                if rank == 0:
+                    logger.info(f"=> saved checkpoint_{epoch:04d} (best={is_best})")
+                logger.info(f"Train Loss {meter.avg:.4f}  Valid Loss {valid_loss:.4f}")
                 history.append({"epoch": epoch, "train_losses": losses,
-                                "train_loss": meter.avg, "valid_loss": vmeter.avg,
+                                "train_loss": meter.avg, "valid_loss": valid_loss,
                                 "is_best": is_best})
         return history
     finally:

@@ -7,10 +7,19 @@ cosine schedule with the discriminator's learning rate at 2x, the four
 step modes (``--step-mode``, default pipelined; ``--async-disc`` is
 async), ``--gen-first`` gating, validation of every utterance with the
 best-by-validation-discriminator-loss checkpoint, ``--resume auto`` and
-``--init-from``, and an emergency checkpoint on SIGTERM/SIGINT.  One
-process trains on one device: ``--device`` (default ``cuda``; ``cpu``
-runs on the CPU).  The data-parallel flags wait for the data-parallel
-slice.
+``--init-from``, and an emergency checkpoint on SIGTERM/SIGINT.
+``--device`` (default ``cuda``; ``cpu`` runs on the CPU).
+
+Data parallel: ``--n-devices n`` or ``--num-processes P`` (with
+``--process-id`` and ``--coordinator`` for ranks started by hand) run one
+rank per device, with the JAX run's global batch on the same flags
+(``parallel/launch.py`` gives the mapping).  Each rank loads its shard of
+the training files; a batch whose rows differ between the ranks is
+skipped by all; validation splits every global batch over the ranks;
+rank 0 writes the checkpoints, the others wait; ``--resume`` and
+``--init-from`` are read by every rank, then rank 0's state is broadcast.
+After each epoch the ranks check that their replicas are bitwise equal and
+log the digest.
 
 Usage:
   python -m speech_enhancement_tpu_torch.cli.main_gan -a scp \\
@@ -22,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -31,6 +41,19 @@ from speech_enhancement_tpu_torch.config import get_config
 from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset
 from speech_enhancement_tpu_torch.metrics.pesq import batch_pesq_raw
 from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
+from speech_enhancement_tpu_torch.parallel import (
+    barrier,
+    broadcast_state_,
+    check_replicas,
+    destroy,
+    host_sum,
+    init_distributed,
+    launch,
+    rank_device,
+    shard_rows,
+    spawn,
+    world_size,
+)
 from speech_enhancement_tpu_torch.train import (
     DISC_LAG,
     GanTrainState,
@@ -41,7 +64,6 @@ from speech_enhancement_tpu_torch.train import (
     run_gan_epoch,
 )
 from speech_enhancement_tpu_torch.utils import (
-    AverageMeter,
     PreemptionGuard,
     create_logger,
     latest_checkpoint,
@@ -120,6 +142,7 @@ def parse_option(argv=None):
                         help="torch device; default cuda (raises without a card)")
     parser.add_argument("--debug", action="store_true",
                         help="stop at the first generator loss that is not finite")
+    launch.add_arguments(parser)
     args = parser.parse_args(argv)
     if args.step_mode is None:
         args.step_mode = "async" if args.async_disc else "pipelined"
@@ -131,6 +154,10 @@ def parse_option(argv=None):
         parser.error("--init-from and --resume are mutually exclusive: one seeds weights "
                      "only, the other restores the full training state")
     config = get_config(args)
+    try:
+        args.world, args.rank_batch = launch.layout(args, config.DATA.BATCH_SIZE)
+    except ValueError as exc:
+        parser.error(str(exc))
     return args, config
 
 
@@ -138,38 +165,70 @@ def validate(state: GanTrainState, loader, *, batch_size: int, arch: str, criter
              crit_name: str, comp_type: str, gan_active: bool, loss_weights: tuple,
              sample_rate: int) -> tuple[float, float]:
     """(generator loss, discriminator loss) over every utterance: a ragged
-    tail batch is padded with repeated rows, whose losses are masked out."""
+    tail batch is padded with repeated rows, whose losses are masked out.
+    Data parallel: every rank reads the whole batch (``batch_size`` is the
+    global batch), pads it to a multiple of the world size, evaluates its
+    contiguous rows and masks the pad rows; the masked sums and the
+    counts are summed over the ranks at the end, so that the result is one
+    process's."""
     device = next(state.gen.parameters()).device
-    vg, vd = AverageMeter(), AverageMeter()
+    gen_sum = disc_sum = count = 0.0
     for batch in loader:
         b = batch.audio.shape[0]
         if b == 0:
             continue
-        rows = np.arange(_validation_pad_rows(b, batch_size, 1)) % b  # cyclic repeats
+        pos = shard_rows(np.arange(_validation_pad_rows(b, batch_size, world_size())))
+        real = int((pos < b).sum())
+        if real == 0:
+            continue
+        rows = pos % b  # cyclic repeats
         audio, noisy = batch.audio[rows], batch.noisy[rows]
         losses, aux = gan_eval_step(
             state, torch.from_numpy(audio).to(device), torch.from_numpy(noisy).to(device),
             arch=arch, criterion=criterion, comp_type=comp_type, gan_active=gan_active,
             loss_weights=loss_weights, per_example=True)
-        est = aux.est_audio[:b].float().cpu().numpy()
-        q_est = (batch_pesq_raw(audio[:b, :est.shape[1]], est, sample_rate) - 1.0) / 3.5
-        d_fake = aux.metrics["d_fake"][:b].cpu().numpy()
-        d_real = aux.metrics["d_real"][:b].cpu().numpy()
-        vg.update(float(losses["loss"][:b].mean()), b)
-        vd.update(host_validation_disc_loss(d_real, d_fake, q_est, crit_name), b)
-    return vg.avg, vd.avg
+        # the real rows come first: pad positions follow every real one
+        est = aux.est_audio[:real].float().cpu().numpy()
+        q_est = (batch_pesq_raw(audio[:real, :est.shape[1]], est, sample_rate) - 1.0) / 3.5
+        d_fake = aux.metrics["d_fake"][:real].cpu().numpy()
+        d_real = aux.metrics["d_real"][:real].cpu().numpy()
+        gen_sum += float(losses["loss"][:real].mean()) * real
+        disc_sum += host_validation_disc_loss(d_real, d_fake, q_est, crit_name) * real
+        count += real
+    gen_sum, disc_sum, count = host_sum([gen_sum, disc_sum, count])
+    return gen_sum / max(count, 1), disc_sum / max(count, 1)
+
+
+def _rank_main(process_id: int, world: int, coordinator: str, argv: list[str]):
+    return main(launch.rank_argv(argv, process_id, coordinator))
 
 
 def main(argv=None) -> list[dict]:
     """Train; returns one record per epoch run: ``{"epoch", "train"
-    (EpochStats), "valid_gen", "valid_disc", "is_best"}``."""
+    (EpochStats), "valid_gen", "valid_disc", "is_best"}`` (rank 0's, when
+    this call started the ranks)."""
     args, config = parse_option(argv)
-    device = resolve_device(args.device)
+    if args.world > 1 and args.process_id is None:
+        return spawn(_rank_main, args.world, list(sys.argv[1:] if argv is None else argv))
+    rank = args.process_id or 0
+    device = rank_device(args.device, rank) if args.world > 1 else resolve_device(args.device)
+    backend = init_distributed(args.coordinator, args.world, rank, device)
+    try:
+        return train(args, config, device, rank, backend)
+    finally:
+        if backend is not None:
+            destroy()
+
+
+def train(args, config, device: torch.device, rank: int, backend: str | None) -> list[dict]:
+    """The body of :func:`main` on this rank's ``device``."""
     if args.seed is not None:
         np.random.seed(args.seed)
     seed = args.seed or 0
-    logger = create_logger(config.OUTPUT, dist_rank=0, name=args.arch)
-    logger.info(f"device: {device}, arch: {args.arch}, step mode: {args.step_mode}")
+    logger = create_logger(config.OUTPUT, dist_rank=rank, name=args.arch)
+    logger.info(f"device: {device}, arch: {args.arch}, step mode: {args.step_mode}, "
+                f"ranks: {args.world} ({backend or 'one process'}), "
+                f"{args.rank_batch} rows a rank")
 
     gen_model = TSCNet(64, config.N_FFT // 2 + 1, fused_attention=args.fused_attention,
                        device=device, generator=torch.Generator().manual_seed(seed))
@@ -184,17 +243,21 @@ def main(argv=None) -> list[dict]:
                                 config.HOP_SAMPLES, config.CROP_FRAMES)
     valid_ds = VoicebankDataset(config.DATA.TEST_CLEAN_DIR, config.DATA.TEST_NOISY_DIR,
                                 config.HOP_SAMPLES, config.CROP_FRAMES)
-    batch_size = config.DATA.BATCH_SIZE
+    global_batch = args.rank_batch * args.world
 
-    def collator():
+    def collator(labels: bool):
         return Collator(config.HOP_SAMPLES, config.CROP_FRAMES, config.CROP_LEN,
-                        rng=np.random.default_rng(args.seed), precompute_labels=True,
+                        rng=np.random.default_rng(args.seed), precompute_labels=labels,
                         sample_rate=config.SAMPLE_RATE)
 
-    train_loader = DataLoader(train_ds, batch_size, collator(), shuffle=True, seed=seed,
+    # each rank loads its shard of the training files
+    train_loader = DataLoader(train_ds, args.rank_batch, collator(True), shuffle=True,
+                              seed=seed, shard_id=rank, num_shards=args.world,
                               num_workers=args.workers)
-    # every utterance is validated: the tail batch is padded and masked
-    valid_loader = DataLoader(valid_ds, batch_size, collator(), shuffle=False,
+    # every utterance is validated: every rank reads the global batches and
+    # evaluates its rows, the tail batch is padded and masked
+    # (validation computes its estimate's labels itself)
+    valid_loader = DataLoader(valid_ds, global_batch, collator(False), shuffle=False,
                               num_workers=args.workers, drop_last=False)
 
     iters_per_epoch = max(len(train_loader), 1)
@@ -207,25 +270,35 @@ def main(argv=None) -> list[dict]:
                          for schedule, model in zip(schedules, (gen_model, disc_model)))
     state = GanTrainState(gen_model, disc_model, gen_opt, disc_opt)
 
-    start_epoch = args.start_epoch
     if args.init_from:
         variables = load_variables(args.init_from)
         gen_model.load_state_dict(variables["gen"])
         disc_model.load_state_dict(variables["disc"])
         logger.info(f"=> model weights initialized from {args.init_from} "
                     "(fresh optimizers, epoch 0)")
+    state.epoch = args.start_epoch
     if args.resume:
         path = latest_checkpoint(config.OUTPUT) if args.resume == "auto" else args.resume
         if path:
             state.load_state_dict(load_checkpoint(path))
-            start_epoch = state.epoch
-            logger.info(f"=> resumed from {path} (epoch {start_epoch})")
+            logger.info(f"=> resumed from {path} (epoch {state.epoch})")
+    # every rank starts from rank 0's weights, optimizer state and counters
+    broadcast_state_(state)
+    barrier()
+    start_epoch = state.epoch
 
     loss_weights = tuple(config.LOSS_WEIGHTS)
     history = []
     # pipelined mode keeps two label jobs in flight
     label_pool = ThreadPoolExecutor(max_workers=max(1, args.disc_lag))
     guard = PreemptionGuard()
+
+    def checkpoint(epoch: int, **kw):
+        """Rank 0 writes, every rank waits for it."""
+        if rank == 0:
+            save_checkpoint(state.state_dict(), config.OUTPUT, epoch, **kw)
+        barrier()
+
     try:
         for epoch in range(start_epoch, args.epochs):
             train_loader.set_epoch(epoch)
@@ -250,22 +323,25 @@ def main(argv=None) -> list[dict]:
                 sample_rate=config.SAMPLE_RATE, label_pool=label_pool, on_step=on_step)
             if stats.stopped:
                 state.epoch = epoch  # the interrupted epoch runs again on resume
-                save_checkpoint(state.state_dict(), config.OUTPUT, epoch)
+                checkpoint(epoch)
                 logger.info(f"=> preemption checkpoint_{epoch:04d} saved; resume with "
                             "--resume auto")
                 return history
 
             valid_gen, valid_disc = validate(
-                state, valid_loader, batch_size=batch_size, arch=args.arch,
+                state, valid_loader, batch_size=global_batch, arch=args.arch,
                 criterion=criterion, crit_name=crit_name, comp_type=args.comp_type,
                 gan_active=gan_active, loss_weights=loss_weights,
                 sample_rate=config.SAMPLE_RATE)
             is_best = valid_disc <= state.best_loss
             state.best_loss = min(valid_disc, state.best_loss)
             state.epoch = epoch + 1
-            save_checkpoint(state.state_dict(), config.OUTPUT, epoch, is_best,
-                            variables=state.variables())
-            logger.info(f"=> saved checkpoint_{epoch:04d} (best={is_best})")
+            if args.world > 1:
+                logger.info(f"replicas: generator {check_replicas(state.gen)} "
+                            f"discriminator {check_replicas(state.disc)}")
+            checkpoint(epoch, is_best=is_best, variables=state.variables())
+            if rank == 0:
+                logger.info(f"=> saved checkpoint_{epoch:04d} (best={is_best})")
             logger.info(f"Train Gen {stats.gen.avg:.3f}  Train Disc {stats.disc.avg:.3f}  "
                         f"Valid Gen {valid_gen:.3f}  Valid Disc {valid_disc:.3f}")
             history.append({"epoch": epoch, "train": stats, "valid_gen": valid_gen,

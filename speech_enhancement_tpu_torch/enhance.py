@@ -5,7 +5,10 @@ samples), batched, and each batch runs RMS normalize -> compressed STFT ->
 TSCNet -> uncompressed iSTFT -> denormalize on one device.  With
 ``fused_stft=True`` the featurization goes through the K4/K5 kernels
 (``ops/fused_stft.py``); ``TSCNet(fused_attention=True)`` sends the time
-conformers through K1.
+conformers through K1, ``TSCNet(quantized_convs=True)`` its encoder and
+decoders' 15 convs through int8 (``ops/int8.py``).  ``devices=[...]``
+splits each batch over a replica of the model on each device, as the JAX
+Enhancer's ``mesh`` does.
 """
 
 from __future__ import annotations
@@ -84,19 +87,35 @@ class Enhancer:
     matmuls ignore the setting, and so do the hand-written kernels (K1's
     3xTF32 and bf16 instances, K4, K5), whose arithmetic is their own at
     every setting.  Any other value raises ``ValueError``.
+
+    ``devices`` (a list, in place of ``device``) serves on several devices,
+    the counterpart of the JAX Enhancer's ``mesh``: one replica of the
+    model on each (the first is the model passed in, moved there), and
+    each batch padded by repeating its last row until the device count
+    divides it, split into contiguous row slices, each launched on its
+    device before any is collected, and joined in order.  A device may
+    appear twice (two replicas on one card).  With an int8 model
+    (``TSCNet(quantized_convs=True)``) the dynamic activation scales are
+    each slice's own, as under the JAX Enhancer's ``shard_map``: the
+    output can differ from one device's by int8 rounding.
     """
 
     def __init__(self, model: torch.nn.Module, n_fft: int = 400, hop: int = 100,
                  quantum: int = 8000, compute_dtype: torch.dtype | None = None,
                  matmul_precision: str | None = "bfloat16", fused_stft: bool = False,
-                 device=None):
+                 device=None, devices=None):
         if matmul_precision not in MATMUL_PRECISIONS:
             raise ValueError(f"matmul_precision {matmul_precision!r} is not one of "
                              f"{list(MATMUL_PRECISIONS)}")
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device or devices, not both")
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         if compute_dtype is not None:
             model = copy.deepcopy(model).to(dtype=compute_dtype)
         self.model = model.to(self.device).eval()
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in self.devices[1:]]
         self.n_fft = n_fft
         self.hop = hop
         # a hop that does not divide the quantum gets the nearest smaller
@@ -109,11 +128,13 @@ class Enhancer:
         self.fused_stft = fused_stft
 
     @torch.inference_mode()
-    def _step(self, noisy: torch.Tensor) -> torch.Tensor:
+    def _step(self, noisy: torch.Tensor, *replica: torch.nn.Module) -> torch.Tensor:
         with fp32_precision(MATMUL_PRECISIONS[self.matmul_precision]):
-            return self._enhance(noisy)
+            return self._enhance(noisy, *replica)
 
-    def _enhance(self, noisy: torch.Tensor) -> torch.Tensor:
+    def _enhance(self, noisy: torch.Tensor, model: torch.nn.Module | None = None
+                 ) -> torch.Tensor:
+        model = model or self.model
         stft_fn, istft_fn = ((fused_stft, fused_istft) if self.fused_stft
                              else (compressed_stft, uncompressed_istft))
         _, noisy_n, c = normalize_batch(noisy, noisy)
@@ -122,31 +143,52 @@ class Enhancer:
             spec_in = (spec.real.to(self.compute_dtype), spec.imag.to(self.compute_dtype))
         else:
             spec_in = spec
-        est_real, est_imag = self.model(spec_in)
+        est_real, est_imag = model(spec_in)
         est = istft_fn(torch.complex(est_real.float(), est_imag.float()), self.n_fft,
                        self.hop, comp_type="pow", length=noisy.shape[-1])
         return est / c
 
-    def _launch(self, batch: np.ndarray):
-        """Enqueue one batch; returns what :meth:`_collect` waits on.  On
-        CUDA the result is copied into pinned host memory behind an event,
-        so the copy is queued before the next batch's work."""
-        x = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
-        est = self._step(x.to(self.device))
-        if self.device.type != "cuda":
-            return est, None
-        host = torch.empty(est.shape, dtype=est.dtype, pin_memory=True)
-        host.copy_(est, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+    def _launch_on(self, i: int, rows: np.ndarray):
+        """Enqueue ``rows`` on replica ``i``.  On CUDA the result is copied
+        into pinned host memory behind an event, so the copy is queued
+        before the next batch's work."""
+        device = self.devices[i]
+        replica = (self.replicas[i],) if i else ()
+        x = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
+        if device.type != "cuda":
+            return self._step(x.to(device), *replica), None
+        with torch.cuda.device(device):
+            est = self._step(x.to(device), *replica)
+            host = torch.empty(est.shape, dtype=est.dtype, pin_memory=True)
+            host.copy_(est, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return host, done
+
+    def _pad_to_devices(self, batch: np.ndarray) -> np.ndarray:
+        """Repeat the last row until the device count divides the rows."""
+        short = -batch.shape[0] % len(self.devices)
+        if short:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], short, axis=0)])
+        return batch
+
+    def _launch(self, batch: np.ndarray):
+        """Enqueue one batch, a contiguous row slice on each device; returns
+        what :meth:`_collect` waits on."""
+        padded = self._pad_to_devices(batch)
+        per = padded.shape[0] // len(self.devices)
+        return batch.shape[0], [self._launch_on(i, padded[i * per:(i + 1) * per])
+                                for i in range(len(self.devices))]
 
     @staticmethod
     def _collect(pending) -> np.ndarray:
-        est, done = pending
-        if done is not None:
-            done.synchronize()
-        return est.numpy()
+        rows, parts = pending
+        out = []
+        for est, done in parts:
+            if done is not None:
+                done.synchronize()
+            out.append(est.numpy())
+        return np.concatenate(out)[:rows]
 
     def enhance_batch(self, noisy: np.ndarray) -> np.ndarray:
         """Enhance a fixed-length ``[B, L]`` batch (L a hop multiple)."""

@@ -26,20 +26,30 @@ from speech_enhancement_tpu_torch.models.layers import (
     rematerialized,
 )
 from speech_enhancement_tpu_torch.ops.fused_relayout import swap_seq_axes
+from speech_enhancement_tpu_torch.ops.int8 import QuantConv2d
 from speech_enhancement_tpu_torch.utils.device import resolve_device
+
+
+def conv2d(quantized: bool, *args, **kwargs) -> nn.Conv2d:
+    """``nn.Conv2d``, or with ``quantized`` its int8 serving twin
+    :class:`~speech_enhancement_tpu_torch.ops.int8.QuantConv2d` (the same
+    parameters)."""
+    return (QuantConv2d if quantized else nn.Conv2d)(*args, **kwargs)
 
 
 class DilatedDenseNet(nn.Module):
     """Four densely connected (2, 3) convs, time-dilated 2^i with causal
     time padding (pad ``dil`` frames before, none after) and (1, 1) on
-    frequency (``generator.py:49-80``)."""
+    frequency (``generator.py:49-80``).  ``quantized``: the four convs
+    contract in int8 (``ops/int8.py``)."""
 
-    def __init__(self, depth: int = 4, channels: int = 64):
+    def __init__(self, depth: int = 4, channels: int = 64, quantized: bool = False):
         super().__init__()
         self.depth = depth
         for i in range(depth):
             setattr(self, f"conv{i + 1}",
-                    nn.Conv2d(channels * (i + 1), channels, (2, 3), dilation=(2 ** i, 1)))
+                    conv2d(quantized, channels * (i + 1), channels, (2, 3),
+                           dilation=(2 ** i, 1)))
             setattr(self, f"norm{i + 1}", InstanceNorm(channels))
             setattr(self, f"prelu{i + 1}", PReLU(channels))
 
@@ -57,14 +67,16 @@ class DilatedDenseNet(nn.Module):
 
 class DenseEncoder(nn.Module):
     """1x1 conv -> DilatedDenseNet -> (1, 3) conv with stride (1, 2) that
-    halves F (``generator.py:83-106``)."""
+    halves F (``generator.py:83-106``).  ``quantized``: the dense block
+    and the strided conv in int8; the 1x1 conv (Cin 3) stays float."""
 
-    def __init__(self, in_channel: int = 3, channels: int = 64):
+    def __init__(self, in_channel: int = 3, channels: int = 64, quantized: bool = False):
         super().__init__()
         self.conv_1 = nn.Sequential(nn.Conv2d(in_channel, channels, (1, 1)),
                                     InstanceNorm(channels), PReLU(channels))
-        self.dilated_dense = DilatedDenseNet(4, channels)
-        self.conv_2 = nn.Sequential(nn.Conv2d(channels, channels, (1, 3), (1, 2), (0, 1)),
+        self.dilated_dense = DilatedDenseNet(4, channels, quantized)
+        self.conv_2 = nn.Sequential(conv2d(quantized, channels, channels, (1, 3), (1, 2),
+                                           (0, 1)),
                                     InstanceNorm(channels), PReLU(channels))
 
     def forward(self, x):
@@ -109,10 +121,11 @@ class SPConvTranspose2d(nn.Module):
     """Sub-pixel upsampler along F: conv to r * out channels, then the r
     channel blocks interleave F-major (``generator.py:208-227``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size, r: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, r: int = 1,
+                 quantized: bool = False):
         super().__init__()
         self.r = r
-        self.conv = nn.Conv2d(in_channels, out_channels * r, kernel_size)
+        self.conv = conv2d(quantized, in_channels, out_channels * r, kernel_size)
 
     def forward(self, x):
         y = self.conv(F.pad(x, (1, 1, 0, 0)))
@@ -124,12 +137,13 @@ class SPConvTranspose2d(nn.Module):
 class MaskDecoder(nn.Module):
     """Dense block -> sub-pixel x2 -> conv to 1 channel -> norm / PReLU ->
     1x1 conv -> per-frequency PReLU(init -0.25) mask ``[B, T, F]``
-    (``generator.py:230-251``)."""
+    (``generator.py:230-251``).  ``quantized``: the dense block and the
+    sub-pixel conv in int8; the two 1-channel output convs stay float."""
 
-    def __init__(self, num_features: int = 201, channels: int = 64):
+    def __init__(self, num_features: int = 201, channels: int = 64, quantized: bool = False):
         super().__init__()
-        self.dense_block = DilatedDenseNet(4, channels)
-        self.sub_pixel = SPConvTranspose2d(channels, channels, (1, 3), 2)
+        self.dense_block = DilatedDenseNet(4, channels, quantized)
+        self.sub_pixel = SPConvTranspose2d(channels, channels, (1, 3), 2, quantized)
         self.conv_1 = nn.Conv2d(channels, 1, (1, 2))
         self.norm = InstanceNorm(1)
         self.prelu = PReLU(1)
@@ -144,12 +158,14 @@ class MaskDecoder(nn.Module):
 
 class ComplexDecoder(nn.Module):
     """Dense block -> sub-pixel x2 -> norm / PReLU -> conv to (re, im)
-    ``[B, 2, T, F]`` (``generator.py:254-269``)."""
+    ``[B, 2, T, F]`` (``generator.py:254-269``).  ``quantized``: the dense
+    block and the sub-pixel conv in int8; the 2-channel output conv stays
+    float."""
 
-    def __init__(self, channels: int = 64):
+    def __init__(self, channels: int = 64, quantized: bool = False):
         super().__init__()
-        self.dense_block = DilatedDenseNet(4, channels)
-        self.sub_pixel = SPConvTranspose2d(channels, channels, (1, 3), 2)
+        self.dense_block = DilatedDenseNet(4, channels, quantized)
+        self.sub_pixel = SPConvTranspose2d(channels, channels, (1, 3), 2, quantized)
         self.prelu = PReLU(channels)
         self.norm = InstanceNorm(channels)
         self.conv = nn.Conv2d(channels, 2, (1, 2))
@@ -176,15 +192,22 @@ class TSCNet(nn.Module):
     then moved to ``device`` (``cuda`` when None; pass ``'cpu'`` for the
     CPU).  ``remat=False`` keeps the TSCB activations
     in training instead of recomputing them (more memory, same result).
+
+    ``quantized_convs=True`` runs the JAX package's 15 convs in int8
+    (``ops/int8.py``, a serving path without gradients): the encoder's
+    dense block and strided conv, and each decoder's dense block and
+    sub-pixel conv.  The encoder's 1x1 input conv and the decoders' 1- and
+    2-channel output convs stay float.  The parameters, their names and
+    their initial values are the float model's.
     """
 
     def __init__(self, num_channel: int = 64, num_features: int = 201,
                  fused_attention: bool = False, fused_relayout: bool = False,
-                 remat: bool = True, device=None,
+                 remat: bool = True, quantized_convs: bool = False, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.remat = remat
-        self.dense_encoder = DenseEncoder(3, num_channel)
+        self.dense_encoder = DenseEncoder(3, num_channel, quantized_convs)
         # the four blocks keep the reference's attribute names TSCB_1..4,
         # which are their state_dict keys
         kw = dict(fused_attention=fused_attention, fused_relayout=fused_relayout)
@@ -192,8 +215,8 @@ class TSCNet(nn.Module):
         self.TSCB_2 = TSCB(num_channel, **kw)
         self.TSCB_3 = TSCB(num_channel, **kw)
         self.TSCB_4 = TSCB(num_channel, **kw)
-        self.mask_decoder = MaskDecoder(num_features, num_channel)
-        self.complex_decoder = ComplexDecoder(num_channel)
+        self.mask_decoder = MaskDecoder(num_features, num_channel, quantized_convs)
+        self.complex_decoder = ComplexDecoder(num_channel, quantized_convs)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights_(self, generator)

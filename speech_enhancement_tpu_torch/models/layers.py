@@ -12,6 +12,7 @@ import math
 import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -137,6 +138,22 @@ def rematerialized(block: nn.Module, *inputs: torch.Tensor) -> torch.Tensor:
                       context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
 
+def _global_moments(xf: torch.Tensor):
+    """(biased variance, mean) per channel of ``[N, C, L]`` over every
+    rank's rows: the count and sum in one differentiable all-reduce, then
+    the sum of squared deviations from the global mean in a second (two
+    passes, so that no E[x^2] - E[x]^2 cancellation enters)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    count = xf.new_full((1,), xf.shape[0] * xf.shape[2])
+    sums = all_reduce(torch.cat([xf.sum(dim=(0, 2)), count]))
+    total = sums[-1]
+    mean = sums[:-1] / total
+    dev = xf - mean[:, None]
+    var = all_reduce((dev * dev).sum(dim=(0, 2))) / total
+    return var, mean
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` with flax's train-mode semantics
     (``conformer.py:180-182``): batch statistics in fp32, normalization by
@@ -144,13 +161,23 @@ class BatchNorm1d(nn.BatchNorm1d):
     same biased variance (torch's own update uses the unbiased one, a
     factor n / (n - 1) on the batch term), fp32 running statistics under
     a bf16 input, and no update inside a recompute (:func:`recomputing`).
-    Eval mode is torch's (running statistics)."""
+    Eval mode is torch's (running statistics).
+
+    With a process group of more than one rank up, the statistics are the
+    global batch's, as under the JAX package's SPMD data parallelism and
+    the reference's SyncBatchNorm: :func:`_global_moments` all-reduces the
+    count and sum, then the sum of squared deviations from the global
+    mean, with autograd (the backward all-reduces too).  The collectives
+    also run inside a recompute, on every rank alike."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        var, mean = torch.var_mean(xf, dim=(0, 2), correction=0)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            var, mean = _global_moments(xf)
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 2), correction=0)
         if not getattr(_remat, "active", False):
             with torch.no_grad():
                 self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
@@ -185,8 +212,9 @@ class SpectralNorm(nn.Module):
 
     @torch.no_grad()
     def refresh_(self) -> None:
-        """One power-iteration step on the stored (u, v)."""
-        w = self._flat().float()
+        """One power-iteration step on the stored (u, v), in fp32 or wider."""
+        w = self._flat()
+        w = w.to(torch.promote_types(w.dtype, torch.float32))
         v = w.t() @ self.weight_u
         v = v / (torch.linalg.vector_norm(v) + 1e-12)
         u = w @ v

@@ -24,6 +24,13 @@ of speech_enhancement_tpu/train/diffusion.py).
   the route that the tests and ``chip_smoke.py`` hold the kernel route
   against.  A sampler sets its model to eval mode.
 
+Data parallel (a process group of more than one rank, ``parallel/``):
+a training step averages its gradients and its loss over the ranks before
+the update, and the returned gradient norm is the global gradient's; an
+eval step (``train=False``) returns its rank's loss.  Each rank folds its
+rank into the step's seeds (``parallel.rank_seed``), so that the ranks
+draw their own timesteps, noise and dropout for their rows.
+
 Randomness is explicit.  A step takes an integer seed: the timestep and
 noise draws come from a ``torch.Generator`` seeded from it, the TSCNet's
 dropout from the global RNG seeded (and restored after) from it, so the
@@ -47,6 +54,7 @@ from speech_enhancement_tpu_torch.ops.stft import (
     stft,
     uncompressed_istft,
 )
+from speech_enhancement_tpu_torch.parallel.mesh import all_reduce_mean_, rank_seed
 from speech_enhancement_tpu_torch.train.gan import _seeded, phase_seeds
 from speech_enhancement_tpu_torch.train.state import ModuleState
 
@@ -184,21 +192,25 @@ def _forward(model: torch.nn.Module, compute_dtype: torch.dtype | None) -> Calla
 
 
 def _update(state: ModuleState, loss: torch.Tensor,
-            grad_norm: bool = False) -> torch.Tensor | None:
+            grad_norm: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One optimizer update from ``loss``; a parameter that ``loss`` does
     not reach (DiffuSE's last residual conv) gets a zero gradient, as in
-    JAX, so that weight decay still applies to it.  With ``grad_norm``,
-    returns the global L2 norm of the gradients before the update
-    (``optax.global_norm``)."""
+    JAX, so that weight decay still applies to it.  With more than one
+    rank the gradients and the loss are averaged over the ranks first
+    (``parallel.all_reduce_mean_``): the global batch's.  Returns the
+    (global) loss, detached, and with ``grad_norm`` the global L2 norm of
+    the gradients before the update (``optax.global_norm``), else None."""
     params = list(state.model.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    loss = loss.detach().clone()
+    all_reduce_mean_([*grads, loss])
     norm = torch.nn.utils.get_total_norm(grads) if grad_norm else None
     for p, g in zip(params, grads):
         p.grad = g
     state.opt.step()
     state.opt.zero_grad()
     state.step += 1
-    return norm
+    return loss, norm
 
 
 def diffuse_train_loss(model: torch.nn.Module, clean: torch.Tensor, noisy: torch.Tensor,
@@ -231,16 +243,17 @@ def diffuse_step(state: ModuleState, clean: torch.Tensor, noisy: torch.Tensor, n
     (zero without an update), as the standalone learner logs it."""
     update = train and state.opt is not None
     state.model.train(update)
-    generator = torch.Generator(device=clean.device).manual_seed(seed)
+    generator = torch.Generator(device=clean.device).manual_seed(rank_seed(seed))
     with torch.set_grad_enabled(update):
         pred, target = diffuse_train_loss(state.model, clean, noisy, noise_schedule, generator,
                                           n_fft=n_fft, hop=hop, compute_dtype=compute_dtype,
                                           t=t, noise=noise)
         loss = criterion(pred.float(), target.float())
-    grad_norm = _update(state, loss, return_grad_norm) if update else loss.new_zeros(())
+    loss, grad_norm = (_update(state, loss, return_grad_norm) if update
+                       else (loss.detach(), loss.new_zeros(())))
     if return_grad_norm:
-        return loss.detach(), grad_norm
-    return loss.detach()
+        return loss, grad_norm
+    return loss
 
 
 def tsc_diffusion_step(state: ModuleState, clean: torch.Tensor, noisy: torch.Tensor,
@@ -258,7 +271,7 @@ def tsc_diffusion_step(state: ModuleState, clean: torch.Tensor, noisy: torch.Ten
     seed_noise, seed_drop = phase_seeds(seed)
     update = train and state.opt is not None
     state.model.train(train)
-    generator = torch.Generator(device=clean.device).manual_seed(seed_noise)
+    generator = torch.Generator(device=clean.device).manual_seed(rank_seed(seed_noise))
     with torch.set_grad_enabled(update), _seeded(seed_drop, clean.device):
         c, n, _ = normalize_batch(clean, noisy)
         orig_spec = compressed_stft(n, n_fft, hop, comp_type=comp_type)
@@ -273,7 +286,7 @@ def tsc_diffusion_step(state: ModuleState, clean: torch.Tensor, noisy: torch.Ten
                                        hop, comp_type=comp_type, length=clean.shape[-1])
         loss = torch.mean(torch.abs(predicted - combine_noise))
     if update:
-        _update(state, loss)
+        loss, _ = _update(state, loss)
     return loss.detach()
 
 

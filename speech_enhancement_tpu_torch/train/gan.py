@@ -17,6 +17,14 @@ speech_enhancement_tpu/train/gan.py).
   loop body of the two-phase ``cli/main_gan.py``.
 * :func:`gan_eval_step`: the validation losses, optionally per example.
 
+Data parallel (a process group of more than one rank, ``parallel/``):
+each rank steps on its rows of the global batch; the generator's
+gradients, each of the discriminator's three gradients (before their Gram
+matrix) and the logged losses are averaged over the ranks, and
+``BatchNorm1d`` takes global statistics, so that every rank makes the
+update that one process makes on the global batch.  With one process the
+steps are what they were.
+
 Randomness is explicit: each step takes an integer seed and runs under
 ``torch.random.fork_rng`` seeded from it (dropout masks), so the same call
 on the same state gives the same result and leaves the global RNG as it
@@ -37,6 +45,7 @@ from speech_enhancement_tpu_torch.ops.stft import (
     compressed_stft,
     uncompressed_istft,
 )
+from speech_enhancement_tpu_torch.parallel.mesh import all_reduce_mean_, rank_seed
 from speech_enhancement_tpu_torch.train.state import GanTrainState
 
 LOSS_WEIGHTS = (0.1, 0.9, 0.2, 0.05)  # ri, mag, time, gan
@@ -58,10 +67,12 @@ class GenAux(NamedTuple):
 @contextlib.contextmanager
 def _seeded(seed: int, device: torch.device):
     """The global RNGs (CPU and ``device``) seeded from ``seed`` inside,
-    restored on exit."""
+    restored on exit.  With more than one rank each folds its rank into
+    the seed (``parallel.rank_seed``), so that the ranks draw their own
+    dropout masks, as the reference's DDP ranks do."""
     devices = [device] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices):
-        torch.manual_seed(seed)
+        torch.manual_seed(rank_seed(seed))
         yield
 
 
@@ -157,13 +168,17 @@ def gan_generator_step(state: GanTrainState, clean: torch.Tensor, noisy: torch.T
         # grads of the generator's parameters only: none reach the
         # discriminator, whose .grad stays untouched
         grads = torch.autograd.grad(total, params)
+    # data parallel: the global batch's gradient (clipping, if any, in the
+    # optimizer sees it) and the global means of the logged losses
+    all_reduce_mean_(grads)
+    metrics = {k: v.detach().clone() for k, v in losses.items()}
+    metrics.update(gan_loss=gan_loss.detach().clone(), loss=total.detach().clone())
+    all_reduce_mean_(metrics.values())
     for p, g in zip(params, grads):
         p.grad = g
     state.gen_opt.step()
     state.gen_opt.zero_grad()
     state.gen_step += 1
-    metrics = {k: v.detach() for k, v in losses.items()}
-    metrics.update(gan_loss=gan_loss.detach(), loss=total.detach())
     return GenAux(est_audio=aux["est_audio"].detach(), clean_audio=aux["clean_audio"],
                   noisy_audio=aux["noisy_audio"], est_mag=aux["est_mag"].detach(),
                   clean_mag=aux["clean_mag"], noisy_mag=aux["noisy_mag"],
@@ -220,8 +235,12 @@ def gan_discriminator_step(state: GanTrainState, aux: GenAux, pesq_est: torch.Te
             for other, label in ((clean_mag, pesq_clean), (est_mag, pesq_est),
                                  (noisy_mag, pesq_noisy)):
                 loss = loss_of(other, label)
-                losses.append(loss.detach())
+                losses.append(loss.detach().clone())
                 grads.append(torch.autograd.grad(loss, params))
+            # data parallel: each of the three gradients, and the losses,
+            # averaged over the ranks before the Gram matrix, so that every
+            # rank takes the global gradients' branch
+            all_reduce_mean_([g for grad in grads for g in grad] + losses)
             w = torch.stack(self_correcting_weights(*grads))
             combined = [w[0] * a + w[1] * b + w[2] * c for a, b, c in zip(*grads)]
             disc_loss = torch.dot(w, torch.stack(losses))
@@ -229,7 +248,8 @@ def gan_discriminator_step(state: GanTrainState, aux: GenAux, pesq_est: torch.Te
             loss = (loss_of(clean_mag, torch.ones_like(pesq_est))
                     + loss_of(est_mag, pesq_est))
             combined = torch.autograd.grad(loss, params)
-            disc_loss = loss.detach()
+            disc_loss = loss.detach().clone()
+            all_reduce_mean_([*combined, disc_loss])
     for p, g in zip(params, combined):
         p.grad = g
     state.disc_opt.step()

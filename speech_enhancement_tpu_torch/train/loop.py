@@ -23,7 +23,13 @@ right after its generator step, behind a CUDA event; the label thread
 waits on that event alone, not on the steps queued after it, and the
 labels go back to the card when their update is applied.  Step ``idx`` of
 epoch ``epoch`` takes its dropout seeds from ``(seed, epoch, idx)`` only,
-so that a resumed run replays the stream of a run straight through.  Each
+so that a resumed run replays the stream of a run straight through.
+
+Data parallel: every rank runs this loop over its own shard of the
+batches, in lockstep.  The deferred updates keep their fixed lag, so that
+every rank issues its collectives in the same order; a batch whose rows
+differ between the ranks is skipped by all of them, and a stop that
+``on_step`` asks for on any rank stops every rank at the same step.  Each
 step reads its generator loss back to the host (the per-step meter
 update), as the JAX loop does.
 """
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from speech_enhancement_tpu_torch.metrics.pesq import batch_pesq_raw
+from speech_enhancement_tpu_torch.parallel.mesh import any_rank, same_on_all_ranks
 from speech_enhancement_tpu_torch.train.gan import (
     LOSS_WEIGHTS,
     gan_discriminator_step,
@@ -156,7 +163,10 @@ def run_gan_epoch(state: GanTrainState, batches: Iterable, *, epoch: int, seed: 
         t_end = time.perf_counter()
         for idx, batch in enumerate(batches):
             b = batch.audio.shape[0]
-            if b == 0:
+            # a batch whose rows differ between the ranks (a ragged tail) is
+            # skipped by every rank, as the JAX loop skips a batch that does
+            # not divide over its mesh
+            if not same_on_all_ranks(b) or b == 0:
                 continue
             if batch.pesq_clean is None or batch.pesq_noisy is None:
                 raise ValueError("a batch without precomputed clean and noisy PESQ labels "
@@ -193,7 +203,9 @@ def run_gan_epoch(state: GanTrainState, batches: Iterable, *, epoch: int, seed: 
             stats.gen.update(loss, b)
             stats.batch_time.update(time.perf_counter() - t_end)
             t_end = time.perf_counter()
-            if on_step is not None and on_step(idx, stats):
+            # one decision for every rank: a rank that stopped alone would
+            # leave the others waiting in a collective
+            if on_step is not None and any_rank(on_step(idx, stats)):
                 stats.stopped = True
                 return stats
         # the trailing deferred updates: every batch's applied exactly once

@@ -178,14 +178,22 @@ def test_init_from_loads_weights_only(tiny_dataset, small_models):
               "--resume", "auto")
 
 
-@pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--num-processes", "2"],
-                                   ["--coordinator", "localhost:1234"],
-                                   ["--process-id", "1"]])
+REFUSED_LAYOUTS = {
+    ("--n-devices", "2", "--num-processes", "3"): "name two layouts",
+    ("--n-devices", "3"): "does not divide the batch",
+    ("--coordinator", "localhost:1234"): "need --num-processes or --n-devices",
+    ("--process-id", "1"): "need --num-processes or --n-devices",
+}
+
+
+@pytest.mark.parametrize("flags", [list(k) for k in REFUSED_LAYOUTS])
 def test_data_parallel_flags_are_refused(tiny_dataset, flags, capsys):
+    """Data-parallel flags that name no rank layout are refused (the layouts
+    themselves run in tests/test_torch_parallel.py)."""
     _, cfg = tiny_dataset
     with pytest.raises(SystemExit):
         main_diffuse.parse_option(["--cfg", cfg, *flags])
-    assert "one process trains on one device" in capsys.readouterr().err
+    assert REFUSED_LAYOUTS[tuple(flags)] in capsys.readouterr().err
     args, _ = main_diffuse.parse_option(["--cfg", cfg, "--n-devices", "1", "--num-processes",
                                          "1", "--process-id", "0"])
     assert args.n_devices == 1

@@ -1,5 +1,5 @@
 """The port's entry points and what they stand on (config, data, composite
-metrics, checkpoints, logging, the training loop, the GAN, diffusion and
+metrics, checkpoints, logging, the training loop, data parallelism, the GAN, diffusion and
 standalone CDiffuSE CLIs, their preprocessing and the checkpoint
 converter) import nothing of JAX, flax, optax, yaml or the JAX package,
 and need no CUDA toolchain to import; the packaged overlays load without
@@ -30,6 +30,9 @@ MODULES = [
     "speech_enhancement_tpu_torch.utils.logging",
     "speech_enhancement_tpu_torch.utils.preemption",
     "speech_enhancement_tpu_torch.train.loop",
+    "speech_enhancement_tpu_torch.parallel",
+    "speech_enhancement_tpu_torch.parallel.mesh",
+    "speech_enhancement_tpu_torch.parallel.launch",
     "speech_enhancement_tpu_torch.cli",
     "speech_enhancement_tpu_torch.cli.main_gan",
     "speech_enhancement_tpu_torch.cli.inference_gan",

@@ -26,6 +26,7 @@ MODULES = [
     "speech_enhancement_tpu_torch.ops.fused_stft",
     "speech_enhancement_tpu_torch.ops.fused_attention",
     "speech_enhancement_tpu_torch.ops.fused_relayout",
+    "speech_enhancement_tpu_torch.ops.int8",
     "speech_enhancement_tpu_torch.models",
     "speech_enhancement_tpu_torch.models.layers",
     "speech_enhancement_tpu_torch.models.conformer",
