@@ -1,8 +1,9 @@
 """The port's entry points and what they stand on (config, data, composite
 metrics, checkpoints, logging, the training loop, data parallelism, the GAN, diffusion and
-standalone CDiffuSE CLIs, their preprocessing and the checkpoint
-converter) import nothing of JAX, flax, optax, yaml or the JAX package,
-and need no CUDA toolchain to import; the packaged overlays load without
+standalone CDiffuSE CLIs, their preprocessing, the checkpoint
+converter and the quality scripts of ``scripts/``) import nothing of JAX,
+flax, optax, yaml, the JAX package or the repository's ``scripts/``, and
+need no CUDA toolchain to import; the packaged overlays load without
 yaml.
 
 Checked in a fresh interpreter (this test process has JAX loaded, by
@@ -42,6 +43,12 @@ MODULES = [
     "speech_enhancement_tpu_torch.cli.preprocess",
     "speech_enhancement_tpu_torch.cli.cdiffuse",
     "speech_enhancement_tpu_torch.cli.cdiffuse_inference",
+    "speech_enhancement_tpu_torch.scripts",
+    "speech_enhancement_tpu_torch.scripts.train_quality_proxy",
+    "speech_enhancement_tpu_torch.scripts.check_precision_quality",
+    "speech_enhancement_tpu_torch.scripts.arch_ab_rich",
+    "speech_enhancement_tpu_torch.scripts.train_diffusion_proxy",
+    "speech_enhancement_tpu_torch.scripts.train_cdiffuse_proxy",
 ]
 
 PROBE = """
@@ -55,7 +62,7 @@ print(json.dumps({{
     "loss_weights": cfg.LOSS_WEIGHTS,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "optax", "yaml",
-                                             "speech_enhancement_tpu")),
+                                             "speech_enhancement_tpu", "scripts")),
 }}))
 """
 

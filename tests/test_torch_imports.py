@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX, flax, optax, yaml or the JAX package,
-and needs no CUDA toolchain to import.
+"""The port imports nothing of JAX, flax, optax, yaml, the JAX package or
+the repository's ``scripts/``, and needs no CUDA toolchain to import.
 
 The machine with the card has no JAX, flax or yaml, and the port keeps
 its own copy of what it needs (the PESQ engine included: csrc/pesq.cc,
@@ -48,6 +48,12 @@ MODULES = [
     "speech_enhancement_tpu_torch.enhance",
     "speech_enhancement_tpu_torch.metrics",
     "speech_enhancement_tpu_torch.metrics.pesq",
+    "speech_enhancement_tpu_torch.scripts",
+    "speech_enhancement_tpu_torch.scripts.train_quality_proxy",
+    "speech_enhancement_tpu_torch.scripts.check_precision_quality",
+    "speech_enhancement_tpu_torch.scripts.arch_ab_rich",
+    "speech_enhancement_tpu_torch.scripts.train_diffusion_proxy",
+    "speech_enhancement_tpu_torch.scripts.train_cdiffuse_proxy",
 ]
 
 PROBE = """
@@ -67,7 +73,7 @@ print(json.dumps({{
     "labels": labels.tolist(),
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "flax", "optax", "yaml",
-                                             "speech_enhancement_tpu")),
+                                             "speech_enhancement_tpu", "scripts")),
     "libs": sorted(_native._libs),
 }}))
 """
