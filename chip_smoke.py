@@ -181,7 +181,24 @@ line each (timings beside the card's name and power limit):
    tsc-diffuse for one epoch of 2 steps and a 6-step sweep on 4 pairs;
    (d) ``train_cdiffuse_proxy`` for 20 steps and a 6-step sweep on 4
    pairs: each writes its report and a record of finite metrics, and
-   launches the kernels of its path (K1, K2, K4, K5, the int8 GEMMs).
+   launches the kernels of its path (K1, K2, K4, K5, the int8 GEMMs);
+14. the long-run and runbook scripts, cut in length, at torch's flags as
+   the process started, each with every launch counter zeroed before it
+   and its children's launches read from their counters at exit
+   (:class:`CountedChildren`): (a) ``make_pesq_validation_set``'s
+   conformance sweep on this host's build of the PESQ engine against the
+   committed ``tests/fixtures/pesq_engine_conformance.json`` (each MOS
+   within 1e-4, no monotone violation, level and delay deltas within 0.02
+   and 0.05); (b) ``run_full_recipe_proxy`` with :data:`DRILL_FLAGS` (bf16,
+   fused attention): a real SIGKILL of the trainer after checkpoint 1, the
+   resume at epoch 2, 8 loadable checkpoints and finite swept rows, and
+   the noisy row of the script's default corpus, written and scored here,
+   equal to ``docs/full_recipe_run.json``'s to three decimals; (c)
+   ``label_bias_study``'s control and bias-0.3 arms for one epoch on 16 +
+   8 pairs (records with finite rows, noisy rows bit-equal); (d)
+   ``run_quality_parity`` on (b)'s corpus for one epoch, beside (c) (its
+   report's scp row, best epoch 0); K1 and K2 bf16 launched in training, K1, K4 and K5
+   in the sweeps.
 
 Timing: a kernel's device time is CUDA events around N back-to-back calls
 (N >= 20, and enough calls for >= 2 ms), queued behind a spin kernel so
@@ -201,10 +218,11 @@ main paths' counts: phases 4 and 7, each zeroed before its path, phase
 kernel-route sampler runs and ``inference_diffuse`` calls, and phase 11's
 ``cdiffuse_inference`` calls with the |STFT| conditioner, phase 12's int8
 batches, each zeroed before, and its two ranks' steps (each rank counts
-from zero in its own process) and two-replica ``Enhancer``, and phase
-13's four scripts, each zeroed before; with ``launches_by_path``), after
-phase 9's, 10's and 11's timings and phase 12's ``int8_timings`` and
-``parallel_timings`` and phase 13's ``quality_timings`` as JSON; the last is
+from zero in its own process) and two-replica ``Enhancer``, phase 13's
+four scripts, each zeroed before, and phase 14's three scripts and their
+children; with ``launches_by_path``), after phase 9's, 10's and 11's
+timings, phase 12's ``int8_timings`` and ``parallel_timings``, phase 13's
+``quality_timings`` and phase 14's ``long_run_timings`` as JSON; the last is
 ``{"ok": true, "device": {...}}``.  Any failed check exits 1 without that
 last line; with no CUDA device it exits 1 at once.
 
@@ -221,6 +239,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2866,6 +2885,327 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
     return timings
 
 
+# --------------------------------------------------------------------------
+# phase 14: the long-run and runbook scripts, cut in length
+
+# the code each counted child runs first: at exit it writes its kernel
+# launch counters (:func:`kernel_counts`) to ``<dir>/<pid>.json``; a
+# SIGKILLed child writes none
+COUNTING_PROLOGUE = """\
+import atexit as _atexit
+def _write_launch_counts(out_dir={out_dir!r}):
+    import json, os
+    import chip_smoke
+    with open(os.path.join(out_dir, f"{{os.getpid()}}.json"), "w") as f:
+        json.dump(chip_smoke.kernel_counts(), f)
+_atexit.register(_write_launch_counts)
+"""
+
+
+class CountedChildren:
+    """Stands in for the module ``subprocess`` of a script: each Python
+    child it starts (``-c code`` or ``-m module``) runs
+    :data:`COUNTING_PROLOGUE` first, from the repository root, so that its
+    launches can be summed after it exits."""
+
+    def __init__(self, out_dir: str):
+        import os
+
+        self.out_dir = out_dir
+        os.makedirs(out_dir, exist_ok=True)
+
+    def _wrap(self, cmd: list) -> list:
+        exe, flag, *rest = cmd
+        prologue = COUNTING_PROLOGUE.format(out_dir=self.out_dir)
+        if flag == "-c":
+            return [exe, "-c", prologue + rest[0]]
+        assert flag == "-m", cmd
+        module, *argv = rest
+        return [exe, "-c", prologue + (
+            f"import runpy, sys\nsys.argv = [{module!r}, *{argv!r}]\n"
+            f"runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n")]
+
+    def run(self, cmd, **kw):
+        return subprocess.run(self._wrap(cmd), **kw)
+
+    def Popen(self, cmd, **kw):  # noqa: N802 (the name it stands in for)
+        return subprocess.Popen(self._wrap(cmd), **kw)
+
+    def launches(self) -> dict:
+        """The launches of every child that has exited, summed."""
+        import glob
+        import os
+
+        total = dict.fromkeys(kernel_counts(), 0)
+        for path in glob.glob(os.path.join(self.out_dir, "*.json")):
+            with open(path) as f:
+                for k, v in json.load(f).items():
+                    total[k] += v
+        return total
+
+
+@contextlib.contextmanager
+def children_counted(module, out_dir: str):
+    """``module.subprocess`` replaced by a :class:`CountedChildren`."""
+    real = module.subprocess
+    module.subprocess = CountedChildren(out_dir)
+    try:
+        yield module.subprocess
+    finally:
+        module.subprocess = real
+
+
+class Tee:
+    """A text stream that writes to the real stdout and keeps a copy."""
+
+    def __init__(self):
+        self.parts: list[str] = []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self) -> None:
+        sys.__stdout__.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+# (b): the drill's corpus and schedule, cut in length (cycles at epochs
+# 2/4/6, the gen-first flip at 2); the JAX run's noisy row is of the
+# script's default corpus (320 + 24 pairs of 2 s, rng 7)
+DRILL_FLAGS = ("--train-pairs", "32", "--test-pairs", "8", "--epochs", "8",
+               "--kill-after-epoch", "1")
+FULL_RECIPE_CORPUS = (320, 24, 2.0)
+# (a): JAX's test bound on each committed MOS (tests/test_pesq.py)
+CONFORMANCE_ATOL = 1e-4
+
+
+def long_run_phase(card: str, user_precision: tuple) -> dict:
+    """Phase 14: the long-run and runbook scripts
+    (``speech_enhancement_tpu_torch/scripts``) at full width, cut in
+    length: (a) the PESQ engine's conformance sweep against the committed
+    fixture; (b) the full-recipe drill, 8 epochs on 32 + 8 pairs with the
+    SIGKILL after epoch 1, and the sweep of every checkpoint; (c) the
+    label-bias study's control and bias-0.3 arms side by side, one epoch
+    on 16 + 8 pairs; (d) the parity runbook on (b)'s corpus, one epoch.
+    (a) and the noisy row of the recipe's default corpus run on threads
+    beside (b), (d) beside (c).
+    Each script runs at torch's flags as the process started, with every
+    launch counter zeroed before it; the children's launches are their own
+    counters at exit.  Returns the launches per kernel summed over (b)-(d)
+    and the timings."""
+    import gc
+    import os
+    import re
+    import tempfile
+    from contextlib import redirect_stdout
+
+    from speech_enhancement_tpu_torch.metrics.pesq import pesq
+    from speech_enhancement_tpu_torch.scripts import (
+        label_bias_study,
+        make_pesq_validation_set,
+        run_full_recipe_proxy,
+        run_quality_parity,
+        train_quality_proxy,
+    )
+    from speech_enhancement_tpu_torch.utils import load_checkpoint, load_variables
+
+    t_phase = time.perf_counter()
+    timings: dict = {}
+    launches = {k: 0 for k in kernel_counts()}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_long_run_")
+
+    lock = threading.Lock()
+
+    def counted(label: str, module, fn, children_only: bool = False):
+        """``fn()`` with the counters zeroed before it and the module's
+        children counted; its launches (this process's and its
+        children's), added to the phase's, and its seconds.  With
+        ``children_only`` (a script that launches nothing in this process,
+        run beside another) this process's counters are left alone."""
+        if not children_only:
+            zero_counts()
+        t0 = time.perf_counter()
+        with children_counted(module, os.path.join(tmp.name, "counts", label)) as children:
+            out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        kids = children.launches()
+        here = dict.fromkeys(kids, 0) if children_only else kernel_counts()
+        got = {k: here[k] + kids[k] for k in here}
+        with lock:
+            for k, v in got.items():
+                launches[k] += v
+            timings[f"{label} s"] = secs
+            timings[f"{label} launches"] = got
+            timings[f"{label} child launches"] = kids
+        return out, got, kids, secs
+
+    print(f"[14 long-run] the long-run and runbook scripts at full width, cut in length, at "
+          f"torch's flags as the process started; card {card}", flush=True)
+    # the children need the card's memory more than this process's cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def conformance():
+        t0 = time.perf_counter()
+        return make_pesq_validation_set.build_conformance(pesq), time.perf_counter() - t0
+
+    def default_corpus_noisy_row():
+        root = os.path.join(tmp.name, "full_recipe_default_corpus")
+        n_train, n_test, seconds = FULL_RECIPE_CORPUS
+        train_quality_proxy.make_corpus(root, n_train, n_test, seconds,
+                                        np.random.default_rng(7))
+        return train_quality_proxy.noisy_baseline(root)[1]
+
+    with fp32_precision(*user_precision), ThreadPoolExecutor(max_workers=2) as pool:
+        sweep_job = pool.submit(conformance)
+        noisy_job = pool.submit(default_corpus_noisy_row)
+
+        # (b) the full-recipe drill
+        root_b = os.path.join(tmp.name, "full_recipe")
+        tee = Tee()
+
+        def drill():
+            with redirect_stdout(tee):
+                return run_full_recipe_proxy.main(["--root", root_b, *DRILL_FLAGS])
+
+        rc, got, kids, secs = counted("full recipe drill", run_full_recipe_proxy, drill)
+        printed = tee.text()
+        record_path = os.path.join(root_b, "full_recipe_run.json")
+        ok, summary = proxy_outputs(os.path.join(root_b, "full_recipe_run.md"), record_path,
+                                    "per_epoch")
+        with open(record_path) as f:
+            record = json.load(f)
+        ckpt_dir = os.path.join(root_b, "run", "scp", "default")
+        with open(os.path.join(ckpt_dir, "log_rank0.txt")) as f:
+            log = f.read()
+        before_resume = log[:log.find("=> resumed from")]
+        killed = re.search(r"killed trainer \d+s in, after checkpoint_0001", printed)
+        check(killed is not None and "=> saved checkpoint_0001 " in before_resume
+              and "=> saved checkpoint_0002 " not in before_resume,
+              f"(b) the drill's trainer was SIGKILLed after checkpoint_0001 "
+              f"({killed.group(0) if killed else 'no kill line'}; its log saved no later "
+              f"checkpoint before the resume)")
+        loaded = []
+        for epoch in range(8):
+            path = os.path.join(ckpt_dir, f"checkpoint_{epoch:04d}")
+            state, variables = load_checkpoint(path), load_variables(path)
+            loaded.append(state["epoch"] == epoch + 1 and set(variables) == {"gen", "disc"})
+        per_epoch = record["per_epoch"]
+        check(ok and record["resume_epoch"] == 2 and all(loaded) and sorted(per_epoch, key=int)
+              == [str(e) for e in range(8)]
+              and kids["K1 tensor-core"] > 0 and kids["K2 tensor-core"] > 0
+              and got["K1 tensor-core"] - kids["K1 tensor-core"] > 0
+              and got["K4"] > 0 and got["K5"] > 0,
+              f"(b) run_full_recipe_proxy {' '.join(DRILL_FLAGS)} (bf16, fused attention) in "
+              f"{secs:.1f} s, exit code {rc}: resume epoch {record['resume_epoch']} (want 2), "
+              f"best epochs {record['best_epochs']}, {sum(loaded)} of 8 checkpoints load, "
+              f"{len(per_epoch)} finite swept rows; {summary}; launches {got} (the resumed "
+              f"trainer's {kids}; the killed one's are not counted)")
+        print("    info (b) swept PESQ by epoch: " + ", ".join(
+            f"{e} {per_epoch[str(e)][0]:.3f}" for e in range(8))
+            + f"; the drill corpus's noisy row {[round(v, 3) for v in record['noisy']]}",
+            flush=True)
+
+        # (b) the noisy row of the recipe's default corpus, against JAX's
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                               "full_recipe_run.json")) as f:
+            jax_noisy = json.load(f)["noisy"]
+        noisy = noisy_job.result()
+        check(all(abs(a - b) <= 5e-4 for a, b in zip(noisy, jax_noisy)),
+              f"(b) the full recipe's default corpus ({FULL_RECIPE_CORPUS[0]} + "
+              f"{FULL_RECIPE_CORPUS[1]} pairs of {FULL_RECIPE_CORPUS[2]} s, rng 7) written "
+              f"and scored on this host: noisy row "
+              f"{', '.join(f'{v:.4f}' for v in noisy)} equal to docs/full_recipe_run.json's "
+              f"{', '.join(f'{v:.4f}' for v in jax_noisy)} to three decimals")
+
+        # (a) the conformance sweep, against the committed fixture
+        sweep, sweep_s = sweep_job.result()
+        timings["conformance sweep s"] = sweep_s
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                               "fixtures", "pesq_engine_conformance.json")) as f:
+            fixture = json.load(f)
+        dists = {}
+        for key, value in (("mnru", "mos"), ("level_offsets", "delta_mos"),
+                           ("delay_offsets", "delta_mos")):
+            mine, theirs = sweep[key], fixture[key]
+            same = [{k: v for k, v in r.items() if k != value} for r in mine] == \
+                [{k: v for k, v in r.items() if k != value} for r in theirs]
+            dists[key] = max(abs(a[value] - b[value]) for a, b in zip(mine, theirs)) \
+                if same else math.inf
+        summ = sweep["summary"]
+        timings["conformance max distance"] = dists
+        check(max(dists.values()) <= CONFORMANCE_ATOL and summ["monotone_violations"] == 0
+              and summ["max_abs_level_delta_mos"] <= 0.02
+              and summ["max_abs_delay_delta_mos"] <= 0.05,
+              f"(a) the PESQ engine's conformance sweep ({len(sweep['mnru'])} MNRU, "
+              f"{len(sweep['level_offsets'])} level and {len(sweep['delay_offsets'])} delay "
+              f"scores, this host's g++ -march=native build) in {sweep_s:.1f} s against "
+              f"tests/fixtures/pesq_engine_conformance.json: largest distance MNRU "
+              f"{dists['mnru']:.2e}, level {dists['level_offsets']:.2e}, delay "
+              f"{dists['delay_offsets']:.2e} (atol {CONFORMANCE_ATOL}); {summ} (bounds 0, "
+              f"0.02, 0.05)")
+
+    # (c) two label-bias arms and (d) the parity runbook on (b)'s corpus,
+    # side by side: every launch of theirs is a child's
+    root_c = os.path.join(tmp.name, "label_bias")
+    arms = [a for a in label_bias_study.ARMS if a[0] in ("control", "bias-0.3")]
+    out_d = os.path.join(tmp.name, "parity")
+
+    def study_arms():
+        """The two arms side by side, each a child of its own."""
+        with ThreadPoolExecutor(max_workers=len(arms)) as pool:
+            jobs = [pool.submit(label_bias_study.run_arm, name, bias, noise, root_c, 1,
+                                extra=("--train-pairs", "16", "--test-pairs", "8"))
+                    for name, bias, noise in arms]
+            return [job.result() for job in jobs]
+
+    def runbook():
+        return run_quality_parity.main([
+            "--train-clean", f"{root_b}/train/clean", "--train-noisy", f"{root_b}/train/noisy",
+            "--test-clean", f"{root_b}/test/clean", "--test-noisy", f"{root_b}/test/noisy",
+            "--arch", "scp", "--epochs", "1", "--sweep-last", "1", "-o", out_d])
+
+    with fp32_precision(*user_precision), ThreadPoolExecutor(max_workers=2) as pool:
+        arms_job = pool.submit(counted, "label-bias arms", label_bias_study, study_arms, True)
+        runbook_job = pool.submit(counted, "parity runbook", run_quality_parity, runbook, True)
+        records, got, kids, secs = arms_job.result()
+        rows_ok = all(len(r) == 6 and all(math.isfinite(v) for v in r)
+                      for rec in records for r in [rec["noisy"], *rec["per_epoch"].values()])
+        bests = [max(v[0] for v in rec["per_epoch"].values()) for rec in records]
+        check(rows_ok and records[0]["noisy"] == records[1]["noisy"]
+              and kids["K1 tensor-core"] > 0 and kids["K2 tensor-core"] > 0
+              and kids["K4"] > 0 and kids["K5"] > 0,
+              f"(c) label_bias_study arms control and bias-0.3 side by side, one epoch on "
+              f"16 + 8 pairs in {secs:.1f} s: records written, finite rows, noisy rows "
+              f"bit-equal (evaluation unperturbed); best PESQ {bests[0]:.3f} and "
+              f"{bests[1]:.3f}; launches {got}")
+
+        results, got, kids, secs = runbook_job.result()
+        report = os.path.join(out_d, "quality_parity_results.md")
+        text = open(report).read() if os.path.exists(report) else ""
+        scp = results.get("scp") or {}
+        row = scp.get("metrics") or ()
+        check(scp.get("best_epoch") == 0 and len(row) == 6
+              and all(math.isfinite(v) for v in row) and "| scp (epoch 0) | PESQ |" in text
+              and kids["K1 tensor-core"] > 0 and kids["K4"] > 0 and kids["K5"] > 0,
+              f"(d) run_quality_parity --arch scp --epochs 1 --sweep-last 1 on (b)'s corpus, "
+              f"beside (c), in {secs:.1f} s: report with the scp row, best epoch "
+              f"{scp.get('best_epoch')}; launches {got}")
+        print(f"    info (d) these are synthetic-corpus numbers after one epoch, not parity: "
+              f"scp PESQ {row[0] if row else float('nan'):.3f} against the reference's "
+              f"{run_quality_parity.REFERENCE_ROWS['scp'][0]} on VoiceBank-DEMAND", flush=True)
+    tmp.cleanup()
+    timings["launches"] = launches
+    timings["phase s"] = time.perf_counter() - t_phase
+    print(f"    phase 14 in {timings['phase s']:.1f} s; launches of (b)-(d) {launches} "
+          f"({card})", flush=True)
+    return timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3250,6 +3590,8 @@ def main() -> int:
     parallel_t = parallel_phase(card, user_precision)
     # 13. the quality scripts
     quality_t = quality_phase(card, user_precision)
+    # 14. the long-run and runbook scripts
+    long_run_t = long_run_phase(card, user_precision)
     print(f"[done] {time.perf_counter() - started:.1f} s, build included", flush=True)
 
     if FAILURES:
@@ -3267,10 +3609,11 @@ def main() -> int:
             paths["diffusion (phase 10)"] = diffusion
         if cdiffuse is not None:
             paths["cdiffuse (phase 11)"] = cdiffuse
-        if name is not None:  # phase 12's and 13's paths
+        if name is not None:  # phase 12's, 13's and 14's paths
             paths["int8 serving (phase 12)"] = int8_t["launches"][name]
             paths["data parallel (phase 12)"] = parallel_t["launches"][name]
             paths["quality scripts (phase 13)"] = quality_t["launches"][name]
+            paths["long-run scripts (phase 14)"] = long_run_t["launches"][name]
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
@@ -3334,6 +3677,7 @@ def main() -> int:
     print(json.dumps({"int8_timings": int8_t}))
     print(json.dumps({"parallel_timings": parallel_t}))
     print(json.dumps({"quality_timings": quality_t}))
+    print(json.dumps({"long_run_timings": long_run_t}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -20,7 +20,6 @@ from __future__ import annotations
 import itertools
 import json
 import math
-import shutil
 import time
 from pathlib import Path
 
@@ -33,6 +32,7 @@ from speech_enhancement_tpu_torch.train.diffusion import diffuse_step
 from speech_enhancement_tpu_torch.train.state import ModuleState
 from speech_enhancement_tpu_torch.utils.checkpoint import (
     STATE,
+    copy_into_place,
     load_checkpoint,
     save_checkpoint,
 )
@@ -80,10 +80,7 @@ class DiffuSELearner:
         """``checkpoint_{step:04d}/``, then a full copy as ``<filename>/``."""
         target = save_checkpoint(self.state.state_dict(), str(self.model_dir), self.step,
                                  variables=self.state.variables())
-        alias = self.model_dir / filename
-        if alias.exists():
-            shutil.rmtree(alias)
-        shutil.copytree(target, alias)
+        copy_into_place(target, self.model_dir / filename)
 
     def restore_from_checkpoint(self, filename: str = "weights") -> bool:
         """Model, optimizer and step from ``<filename>/``; False when there

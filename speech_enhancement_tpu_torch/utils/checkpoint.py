@@ -10,12 +10,21 @@ the inference-ready ``{"gen": state_dict, "disc": state_dict}``.  An
 emergency (preemption) checkpoint has ``state.pt`` only.  Loading maps
 every tensor to the CPU and unpickles tensors and plain containers only
 (``weights_only``).
+
+A directory under its final name is always whole, as orbax's finalize
+step gives the JAX package: each one is written under a hidden temporary
+name beside it (``.checkpoint_0003.<random>``, which no glob or
+``latest_checkpoint`` matches) and renamed into place.  A process killed
+mid-save leaves the previous directory of that name, or none, and a
+temporary one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
+import uuid
 from pathlib import Path
 from typing import Any
 
@@ -24,25 +33,45 @@ import torch
 STATE, VARIABLES = "state.pt", "variables.pt"
 
 
+@contextlib.contextmanager
+def _built_in_place(target: Path):
+    """A new hidden directory beside ``target`` to build it in: renamed to
+    ``target`` (whose old copy goes first) when the block ends, removed
+    when the block raises."""
+    staged = target.parent / f".{target.name}.{uuid.uuid4().hex[:12]}"
+    staged.mkdir()
+    try:
+        yield staged
+        if target.exists():
+            shutil.rmtree(target)
+        os.rename(staged, target)
+    except BaseException:
+        shutil.rmtree(staged, ignore_errors=True)
+        raise
+
+
+def copy_into_place(src: str | Path, target: str | Path) -> None:
+    """A full copy of directory ``src`` as ``target``, renamed into place
+    whole."""
+    with _built_in_place(Path(target)) as staged:
+        shutil.copytree(src, staged, dirs_exist_ok=True)
+
+
 def save_checkpoint(state: dict, path: str, epoch: int, is_best: bool = False,
                     keep_name: str = "model_best", variables: dict | None = None) -> str:
     """Save ``state`` to ``<path>/checkpoint_<epoch:04d>/state.pt`` (and
     ``variables`` beside it as ``variables.pt``); copy the directory to
-    ``<path>/<keep_name>`` when ``is_best``.  Returns the directory."""
+    ``<path>/<keep_name>`` when ``is_best``.  Each directory is renamed
+    into place whole.  Returns the directory."""
     path = Path(path).resolve()
     path.mkdir(parents=True, exist_ok=True)
     target = path / f"checkpoint_{epoch:04d}"
-    if target.exists():
-        shutil.rmtree(target)
-    target.mkdir()
-    torch.save(state, target / STATE)
-    if variables is not None:
-        torch.save(variables, target / VARIABLES)
+    with _built_in_place(target) as staged:
+        torch.save(state, staged / STATE)
+        if variables is not None:
+            torch.save(variables, staged / VARIABLES)
     if is_best:
-        best = path / keep_name
-        if best.exists():
-            shutil.rmtree(best)
-        shutil.copytree(target, best)
+        copy_into_place(target, path / keep_name)
     return str(target)
 
 

@@ -1,7 +1,7 @@
 """The port's entry points and what they stand on (config, data, composite
 metrics, checkpoints, logging, the training loop, data parallelism, the GAN, diffusion and
 standalone CDiffuSE CLIs, their preprocessing, the checkpoint
-converter and the quality scripts of ``scripts/``) import nothing of JAX,
+converter and the quality, long-run and runbook scripts of ``scripts/``) import nothing of JAX,
 flax, optax, yaml, the JAX package or the repository's ``scripts/``, and
 need no CUDA toolchain to import; the packaged overlays load without
 yaml.
@@ -49,6 +49,10 @@ MODULES = [
     "speech_enhancement_tpu_torch.scripts.arch_ab_rich",
     "speech_enhancement_tpu_torch.scripts.train_diffusion_proxy",
     "speech_enhancement_tpu_torch.scripts.train_cdiffuse_proxy",
+    "speech_enhancement_tpu_torch.scripts.run_full_recipe_proxy",
+    "speech_enhancement_tpu_torch.scripts.label_bias_study",
+    "speech_enhancement_tpu_torch.scripts.run_quality_parity",
+    "speech_enhancement_tpu_torch.scripts.make_pesq_validation_set",
 ]
 
 PROBE = """

@@ -54,6 +54,10 @@ MODULES = [
     "speech_enhancement_tpu_torch.scripts.arch_ab_rich",
     "speech_enhancement_tpu_torch.scripts.train_diffusion_proxy",
     "speech_enhancement_tpu_torch.scripts.train_cdiffuse_proxy",
+    "speech_enhancement_tpu_torch.scripts.run_full_recipe_proxy",
+    "speech_enhancement_tpu_torch.scripts.label_bias_study",
+    "speech_enhancement_tpu_torch.scripts.run_quality_parity",
+    "speech_enhancement_tpu_torch.scripts.make_pesq_validation_set",
 ]
 
 PROBE = """
