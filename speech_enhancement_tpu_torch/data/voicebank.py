@@ -15,6 +15,11 @@ loader (port of speech_enhancement_tpu/data/voicebank.py).
   to the card.
 
 PESQ comes from the port's own engine (``metrics/pesq.py``).
+
+Under a profiler session (``utils.profiling``) a worker's batch is a span
+``se.data.batch`` (its id the batch's index; the wait to put it on a full
+queue is outside it) holding ``se.data.read`` (its records loaded), and
+the consumer's wait for the next batch is ``se.data.wait``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 
 from speech_enhancement_tpu_torch.data.audio_io import load_wav
 from speech_enhancement_tpu_torch.metrics.pesq import batch_pesq_raw, pesq_loss
+from speech_enhancement_tpu_torch.utils.profiling import span
 
 
 class VoicebankDataset:
@@ -207,9 +213,12 @@ class DataLoader:
                 if stop.is_set():
                     return
                 try:
-                    rng = self._batch_rng(b)
-                    records = [self.dataset.__getitem__(int(i), rng) for i in batches[b]]
-                    item = self.collator.collate(records, rng)
+                    with span("se.data.batch", b):
+                        rng = self._batch_rng(b)
+                        with span("se.data.read"):
+                            records = [self.dataset.__getitem__(int(i), rng)
+                                       for i in batches[b]]
+                        item = self.collator.collate(records, rng)
                 except Exception as exc:  # raised in the caller
                     item = exc
                 while not stop.is_set():  # a consumer that stopped takes nothing
@@ -231,11 +240,12 @@ class DataLoader:
         try:
             received: dict[int, Batch] = {}
             for next_emit in range(start, n_batches):
-                while next_emit not in received:
-                    b, batch = out_q.get()
-                    if isinstance(batch, Exception):
-                        raise batch
-                    received[b] = batch
+                with span("se.data.wait", next_emit):
+                    while next_emit not in received:
+                        b, batch = out_q.get()
+                        if isinstance(batch, Exception):
+                            raise batch
+                        received[b] = batch
                 yield received.pop(next_emit)
         finally:
             stop.set()

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -27,6 +28,7 @@ from speech_enhancement_tpu_torch.ops.stft import (
     uncompressed_istft,
 )
 from speech_enhancement_tpu_torch.utils.device import resolve_device
+from speech_enhancement_tpu_torch.utils.profiling import count, span
 
 
 def round_to_bucket(length: int, quantum: int = 8000, hop: int = 100) -> int:
@@ -98,6 +100,15 @@ class Enhancer:
     (``TSCNet(quantized_convs=True)``) the dynamic activation scales are
     each slice's own, as under the JAX Enhancer's ``shard_map``: the
     output can differ from one device's by int8 rounding.
+
+    Under a profiler session (``utils.profiling``) each :meth:`enhance`
+    call is a span ``se.enhance`` (its id the call's number), and each of
+    its batches spans ``se.enhance.bucket`` (its rows picked, wrap-padded
+    and stacked), ``se.enhance.h2d`` and ``se.enhance.dispatch`` (the
+    model's work and the output's copy enqueued) on each device, and
+    ``se.enhance.collect`` (the wait, the copy out, the cut back); the
+    counters ``enhance.batch_samples`` and ``enhance.pad_samples`` count
+    the samples of each batch and those that wrap-pad added.
     """
 
     def __init__(self, model: torch.nn.Module, n_fft: int = 400, hop: int = 100,
@@ -126,6 +137,7 @@ class Enhancer:
         self.compute_dtype = compute_dtype
         self.matmul_precision = matmul_precision
         self.fused_stft = fused_stft
+        self._calls = itertools.count()
 
     @torch.inference_mode()
     def _step(self, noisy: torch.Tensor, *replica: torch.nn.Module) -> torch.Tensor:
@@ -154,16 +166,18 @@ class Enhancer:
         before the next batch's work."""
         device = self.devices[i]
         replica = (self.replicas[i],) if i else ()
-        x = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
-        if device.type != "cuda":
-            return self._step(x.to(device), *replica), None
-        with torch.cuda.device(device):
-            est = self._step(x.to(device), *replica)
-            host = torch.empty(est.shape, dtype=est.dtype, pin_memory=True)
-            host.copy_(est, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        return host, done
+        with span("se.enhance.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32)).to(device)
+        with span("se.enhance.dispatch"):
+            if device.type != "cuda":
+                return self._step(x, *replica), None
+            with torch.cuda.device(device):
+                est = self._step(x, *replica)
+                host = torch.empty(est.shape, dtype=est.dtype, pin_memory=True)
+                host.copy_(est, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            return host, done
 
     def _pad_to_devices(self, batch: np.ndarray) -> np.ndarray:
         """Repeat the last row until the device count divides the rows."""
@@ -198,30 +212,35 @@ class Enhancer:
                 batch_size: int = 32) -> list[np.ndarray]:
         """Enhance variable-length utterances in length buckets.  Returns
         the enhanced signals cut to their input lengths, in input order."""
-        order = sorted(range(len(utterances)), key=lambda i: len(utterances[i]))
-        out: list[np.ndarray | None] = [None] * len(utterances)
+        with span("se.enhance", next(self._calls)):
+            order = sorted(range(len(utterances)), key=lambda i: len(utterances[i]))
+            out: list[np.ndarray | None] = [None] * len(utterances)
 
-        def drain(pending, chunk):
-            est = self._collect(pending)
-            for row, j in enumerate(chunk):
-                out[j] = est[row, : len(utterances[j])]
+            def drain(pending, chunk):
+                with span("se.enhance.collect"):
+                    est = self._collect(pending)
+                    for row, j in enumerate(chunk):
+                        out[j] = est[row, : len(utterances[j])]
 
-        # one-deep overlap: batch i + 1 is padded and launched before the
-        # host waits for batch i
-        prev = None
-        for start in range(0, len(order), batch_size):
-            chunk = order[start: start + batch_size]
-            bucket = round_to_bucket(max(len(utterances[j]) for j in chunk),
-                                     self.quantum, self.hop)
-            batch = np.stack([wrap_pad(np.asarray(utterances[j], np.float32), bucket)
-                              for j in chunk])
-            pending = self._launch(batch)
+            # one-deep overlap: batch i + 1 is padded and launched before the
+            # host waits for batch i
+            prev = None
+            for start in range(0, len(order), batch_size):
+                with span("se.enhance.bucket"):
+                    chunk = order[start: start + batch_size]
+                    lengths = [len(utterances[j]) for j in chunk]
+                    bucket = round_to_bucket(max(lengths), self.quantum, self.hop)
+                    batch = np.stack([wrap_pad(np.asarray(utterances[j], np.float32), bucket)
+                                      for j in chunk])
+                count("enhance.batch_samples", batch.size)
+                count("enhance.pad_samples", batch.size - sum(lengths))
+                pending = self._launch(batch)
+                if prev is not None:
+                    drain(*prev)
+                prev = (pending, chunk)
             if prev is not None:
                 drain(*prev)
-            prev = (pending, chunk)
-        if prev is not None:
-            drain(*prev)
-        return out  # type: ignore[return-value]
+            return out  # type: ignore[return-value]
 
 
 def predict_one(model: torch.nn.Module, noisy_signal: np.ndarray, n_fft: int = 400,

@@ -14,6 +14,9 @@ the same surface:
 
 The engine is built with g++ into ``_build/`` at first use, under a name
 that hashes its source (``ops/_native.py``); a failed build raises.
+
+Under a profiler session (``utils.profiling``) each engine call is a span
+``se.pesq`` and adds the pairs it scored to the counter ``pesq.rows``.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import threading
 import numpy as np
 
 from speech_enhancement_tpu_torch.ops import _native
+from speech_enhancement_tpu_torch.utils.profiling import count, span
 
 __all__ = ["batch_pesq", "batch_pesq_raw", "build", "pesq", "pesq_loss"]
 
@@ -55,8 +59,10 @@ def pesq(fs: int, ref, deg, mode: str = "wb") -> float:
         raise ValueError("only wideband ('wb') mode is implemented")
     ref = _as_float32(ref)
     deg = _as_float32(deg)
-    score = build().pesq_mos(ref.ctypes.data_as(_F32P), ref.size,
-                             deg.ctypes.data_as(_F32P), deg.size, int(fs))
+    count("pesq.rows", 1)
+    with span("se.pesq"):
+        score = build().pesq_mos(ref.ctypes.data_as(_F32P), ref.size,
+                                 deg.ctypes.data_as(_F32P), deg.size, int(fs))
     if score < 0:
         raise RuntimeError(f"pesq failed with error code {int(-score)}")
     return float(score)
@@ -101,8 +107,10 @@ def batch_pesq_raw(clean: np.ndarray, noisy: np.ndarray, fs: int = 16000,
                          f"{clean.shape} and {noisy.shape}")
     b, length = clean.shape
     out = np.empty(b, np.float64)
-    build().pesq_batch(clean.ctypes.data_as(_F32P), noisy.ctypes.data_as(_F32P),
-                       b, length, int(fs), int(n_threads), out.ctypes.data_as(_F64P))
+    count("pesq.rows", b)
+    with span("se.pesq"):
+        build().pesq_batch(clean.ctypes.data_as(_F32P), noisy.ctypes.data_as(_F32P),
+                           b, length, int(fs), int(n_threads), out.ctypes.data_as(_F64P))
     scores = np.where(out < 0, -1.0, out)
     bias, noise = _label_perturbation()
     if exclude_noise:

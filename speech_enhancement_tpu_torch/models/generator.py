@@ -10,6 +10,12 @@ names are the reference ``state_dict`` keys ``export_tscnet`` writes, so
 In training (``model.train()`` with autograd on) each TSCB is
 rematerialized, as the JAX package's ``tscb_stack`` always does: its
 activations are recomputed in the backward instead of kept.
+
+Under a profiler session (``utils.profiling``) the encoder, each TSCB's
+time and frequency conformers and the two decoders are spans
+``se.model.encoder``, ``se.model.tscb.time``, ``se.model.tscb.freq`` and
+``se.model.decoders`` (a recompute in the backward spans again, on the
+autograd engine's thread).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from speech_enhancement_tpu_torch.models.layers import (
 from speech_enhancement_tpu_torch.ops.fused_relayout import swap_seq_axes
 from speech_enhancement_tpu_torch.ops.int8 import QuantConv2d
 from speech_enhancement_tpu_torch.utils.device import resolve_device
+from speech_enhancement_tpu_torch.utils.profiling import span
 
 
 def conv2d(quantized: bool, *args, **kwargs) -> nn.Conv2d:
@@ -107,14 +114,16 @@ class TSCB(nn.Module):
 
     def forward(self, x):
         b, c, t, f = x.shape
-        x_t = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
-        x_t = self.time_conformer(x_t) + x_t
-        if self.fused_relayout:
-            x_f = swap_seq_axes(x_t.view(b, f, t, c)).view(b * t, f, c)
-        else:
-            x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).reshape(b * t, f, c)
-        x_f = self.freq_conformer(x_f) + x_f
-        return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
+        with span("se.model.tscb.time"):
+            x_t = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
+            x_t = self.time_conformer(x_t) + x_t
+        with span("se.model.tscb.freq"):
+            if self.fused_relayout:
+                x_f = swap_seq_axes(x_t.view(b, f, t, c)).view(b * t, f, c)
+            else:
+                x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).reshape(b * t, f, c)
+            x_f = self.freq_conformer(x_f) + x_f
+            return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
 
 
 class SPConvTranspose2d(nn.Module):
@@ -223,20 +232,22 @@ class TSCNet(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, spec):
-        re, im = split_spec(spec)
-        # magnitude and phase in fp32 even under a bf16 compute dtype: the
-        # phase recombination at the output is precision-critical
-        ref, imf = re.float(), im.float()
-        mag32 = torch.sqrt(ref * ref + imf * imf)
-        phase = torch.atan2(imf, ref)
-        x_in = torch.stack([mag32.to(re.dtype), re, im], dim=1)  # [B, 3, T, F]
+        with span("se.model.encoder"):
+            re, im = split_spec(spec)
+            # magnitude and phase in fp32 even under a bf16 compute dtype:
+            # the phase recombination at the output is precision-critical
+            ref, imf = re.float(), im.float()
+            mag32 = torch.sqrt(ref * ref + imf * imf)
+            phase = torch.atan2(imf, ref)
+            x_in = torch.stack([mag32.to(re.dtype), re, im], dim=1)  # [B, 3, T, F]
+            out = self.dense_encoder(x_in)
 
-        out = self.dense_encoder(x_in)
         remat = self.remat and self.training and torch.is_grad_enabled()
         for tscb in (self.TSCB_1, self.TSCB_2, self.TSCB_3, self.TSCB_4):
             out = rematerialized(tscb, out) if remat else tscb(out)
 
-        out_mag = self.mask_decoder(out).float() * mag32
-        complex_out = self.complex_decoder(out).float()
-        return (out_mag * torch.cos(phase) + complex_out[:, 0],
-                out_mag * torch.sin(phase) + complex_out[:, 1])
+        with span("se.model.decoders"):
+            out_mag = self.mask_decoder(out).float() * mag32
+            complex_out = self.complex_decoder(out).float()
+            return (out_mag * torch.cos(phase) + complex_out[:, 0],
+                    out_mag * torch.sin(phase) + complex_out[:, 1])

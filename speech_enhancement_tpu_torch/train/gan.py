@@ -29,6 +29,12 @@ Randomness is explicit: each step takes an integer seed and runs under
 ``torch.random.fork_rng`` seeded from it (dropout masks), so the same call
 on the same state gives the same result and leaves the global RNG as it
 was.  The steps update the modules and optimizers of the state in place.
+
+Under a profiler session (``utils.profiling``) a generator step is a span
+``se.train.gen_step``; its gradient pass ``se.train.gen_backward``, each
+of the discriminator's ``se.train.disc_backward``, and each optimizer
+update ``se.train.optim``.  A span that holds a backward call names the
+host's wait while the autograd engine's thread runs it.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from speech_enhancement_tpu_torch.ops.stft import (
 )
 from speech_enhancement_tpu_torch.parallel.mesh import all_reduce_mean_, rank_seed
 from speech_enhancement_tpu_torch.train.state import GanTrainState
+from speech_enhancement_tpu_torch.utils.profiling import span
 
 LOSS_WEIGHTS = (0.1, 0.9, 0.2, 0.05)  # ri, mag, time, gan
 
@@ -146,43 +153,46 @@ def gan_generator_step(state: GanTrainState, clean: torch.Tensor, noisy: torch.T
     """One generator update (``gan.py:206-301``) on ``[B, L]`` audio.
     Returns the :class:`GenAux` of the step, with its losses under
     ``metrics`` (detached)."""
-    gen, disc = state.gen, state.disc
-    gen.train()
-    disc.train()  # the GAN term runs the discriminator with dropout
-    names, params = zip(*gen.named_parameters())
-    if compute_dtype is not None:
-        cast = {n: p.to(compute_dtype) for n, p in zip(names, params)}
-        gen_fn = lambda spec: torch.func.functional_call(gen, cast, (spec,))  # noqa: E731
-    else:
-        gen_fn = gen
-    with _seeded(seed, clean.device):
-        losses, aux = _generator_losses(gen_fn, clean, noisy, arch=arch,
-                                        criterion=criterion, comp_type=comp_type,
-                                        n_fft=n_fft, hop=hop, compute_dtype=compute_dtype)
-        if gan_active:
-            d_fake = disc(aux["clean_mag"], aux["est_mag"]).reshape(-1)
-            gan_loss = criterion(d_fake, torch.ones_like(d_fake))
+    with span("se.train.gen_step"):
+        gen, disc = state.gen, state.disc
+        gen.train()
+        disc.train()  # the GAN term runs the discriminator with dropout
+        names, params = zip(*gen.named_parameters())
+        if compute_dtype is not None:
+            cast = {n: p.to(compute_dtype) for n, p in zip(names, params)}
+            gen_fn = lambda spec: torch.func.functional_call(gen, cast, (spec,))  # noqa: E731
         else:
-            gan_loss = torch.zeros((), dtype=clean.dtype, device=clean.device)
-        total = _total(losses, gan_loss, gan_active, loss_weights)
-        # grads of the generator's parameters only: none reach the
-        # discriminator, whose .grad stays untouched
-        grads = torch.autograd.grad(total, params)
-    # data parallel: the global batch's gradient (clipping, if any, in the
-    # optimizer sees it) and the global means of the logged losses
-    all_reduce_mean_(grads)
-    metrics = {k: v.detach().clone() for k, v in losses.items()}
-    metrics.update(gan_loss=gan_loss.detach().clone(), loss=total.detach().clone())
-    all_reduce_mean_(metrics.values())
-    for p, g in zip(params, grads):
-        p.grad = g
-    state.gen_opt.step()
-    state.gen_opt.zero_grad()
-    state.gen_step += 1
-    return GenAux(est_audio=aux["est_audio"].detach(), clean_audio=aux["clean_audio"],
-                  noisy_audio=aux["noisy_audio"], est_mag=aux["est_mag"].detach(),
-                  clean_mag=aux["clean_mag"], noisy_mag=aux["noisy_mag"],
-                  metrics=metrics)
+            gen_fn = gen
+        with _seeded(seed, clean.device):
+            losses, aux = _generator_losses(gen_fn, clean, noisy, arch=arch,
+                                            criterion=criterion, comp_type=comp_type,
+                                            n_fft=n_fft, hop=hop, compute_dtype=compute_dtype)
+            if gan_active:
+                d_fake = disc(aux["clean_mag"], aux["est_mag"]).reshape(-1)
+                gan_loss = criterion(d_fake, torch.ones_like(d_fake))
+            else:
+                gan_loss = torch.zeros((), dtype=clean.dtype, device=clean.device)
+            total = _total(losses, gan_loss, gan_active, loss_weights)
+            # grads of the generator's parameters only: none reach the
+            # discriminator, whose .grad stays untouched
+            with span("se.train.gen_backward"):
+                grads = torch.autograd.grad(total, params)
+        # data parallel: the global batch's gradient (clipping, if any, in the
+        # optimizer sees it) and the global means of the logged losses
+        all_reduce_mean_(grads)
+        metrics = {k: v.detach().clone() for k, v in losses.items()}
+        metrics.update(gan_loss=gan_loss.detach().clone(), loss=total.detach().clone())
+        all_reduce_mean_(metrics.values())
+        for p, g in zip(params, grads):
+            p.grad = g
+        with span("se.train.optim"):
+            state.gen_opt.step()
+            state.gen_opt.zero_grad()
+        state.gen_step += 1
+        return GenAux(est_audio=aux["est_audio"].detach(), clean_audio=aux["clean_audio"],
+                      noisy_audio=aux["noisy_audio"], est_mag=aux["est_mag"].detach(),
+                      clean_mag=aux["clean_mag"], noisy_mag=aux["noisy_mag"],
+                      metrics=metrics)
 
 
 def _sc_weights_from_gram(gram: torch.Tensor) -> torch.Tensor:
@@ -236,7 +246,8 @@ def gan_discriminator_step(state: GanTrainState, aux: GenAux, pesq_est: torch.Te
                                  (noisy_mag, pesq_noisy)):
                 loss = loss_of(other, label)
                 losses.append(loss.detach().clone())
-                grads.append(torch.autograd.grad(loss, params))
+                with span("se.train.disc_backward"):
+                    grads.append(torch.autograd.grad(loss, params))
             # data parallel: each of the three gradients, and the losses,
             # averaged over the ranks before the Gram matrix, so that every
             # rank takes the global gradients' branch
@@ -247,13 +258,15 @@ def gan_discriminator_step(state: GanTrainState, aux: GenAux, pesq_est: torch.Te
         else:
             loss = (loss_of(clean_mag, torch.ones_like(pesq_est))
                     + loss_of(est_mag, pesq_est))
-            combined = torch.autograd.grad(loss, params)
+            with span("se.train.disc_backward"):
+                combined = torch.autograd.grad(loss, params)
             disc_loss = loss.detach().clone()
             all_reduce_mean_([*combined, disc_loss])
     for p, g in zip(params, combined):
         p.grad = g
-    state.disc_opt.step()
-    state.disc_opt.zero_grad()
+    with span("se.train.optim"):
+        state.disc_opt.step()
+        state.disc_opt.zero_grad()
     # one power-iteration step per update, on the new weights
     disc.refresh_()
     state.disc_step += 1

@@ -32,6 +32,14 @@ differ between the ranks is skipped by all of them, and a stop that
 ``on_step`` asks for on any rank stops every rank at the same step.  Each
 step reads its generator loss back to the host (the per-step meter
 update), as the JAX loop does.
+
+Under a profiler session (``utils.profiling``) each step's body is a span
+``se.train.step`` (its id ``(epoch, idx)``, ending before ``on_step``),
+holding ``se.train.h2d`` (the batch to the card), ``se.train.label_wait``
+(the interval ``EpochStats.label_wait`` adds), ``se.train.disc_step``
+(one discriminator update) and ``se.train.sync`` (each loss read back to
+the host); a label job is a span ``se.train.labels`` on its thread, its
+id the step whose estimate it scores.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from speech_enhancement_tpu_torch.train.gan import (
 )
 from speech_enhancement_tpu_torch.train.state import GanTrainState
 from speech_enhancement_tpu_torch.utils.logging import AverageMeter
+from speech_enhancement_tpu_torch.utils.profiling import span
 
 # step mode -> discriminator lag (steps by which its update is deferred)
 DISC_LAG = {"two-phase": 0, "async": 1, "pipelined": 2, "fused": 0}
@@ -100,15 +109,24 @@ def queue_host_copy(est: torch.Tensor):
 
 
 def estimate_labels(clean: np.ndarray, est_host: torch.Tensor, done=None,
-                    sample_rate: int = 16000) -> torch.Tensor:
+                    sample_rate: int = 16000, step=None) -> torch.Tensor:
     """Normalized PESQ labels ``(pesq(clean, est) - 1) / 3.5`` (CPU float32)
     of a :func:`queue_host_copy` result, once its event ``done`` has
-    passed; ``clean`` is cut to the estimate's length."""
-    if done is not None:
-        done.synchronize()
-    est = est_host.float().numpy()
-    scores = batch_pesq_raw(clean[:, :est.shape[1]], est, sample_rate)
-    return torch.from_numpy(((scores - 1.0) / 3.5).astype(np.float32))
+    passed; ``clean`` is cut to the estimate's length.  ``step`` is the id
+    of its span ``se.train.labels``."""
+    with span("se.train.labels", step):
+        if done is not None:
+            done.synchronize()
+        est = est_host.float().numpy()
+        scores = batch_pesq_raw(clean[:, :est.shape[1]], est, sample_rate)
+        return torch.from_numpy(((scores - 1.0) / 3.5).astype(np.float32))
+
+
+def _synced(loss: torch.Tensor) -> float:
+    """``float(loss)``: the host waits for the device (span
+    ``se.train.sync``)."""
+    with span("se.train.sync"):
+        return float(loss)
 
 
 def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -147,16 +165,22 @@ def run_gan_epoch(state: GanTrainState, batches: Iterable, *, epoch: int, seed: 
     pool = ThreadPoolExecutor(max_workers=lag) if own_pool else label_pool
 
     def discriminator_update(aux, q_est, q_clean, q_noisy, disc_seed, b):
-        loss = gan_discriminator_step(state, aux, q_est.to(device), q_clean, q_noisy, disc_seed,
-                                      criterion=criterion, arch=arch)
-        stats.disc_losses.append(float(loss))
-        stats.disc.update(stats.disc_losses[-1], b)
+        with span("se.train.disc_step"):
+            loss = gan_discriminator_step(state, aux, q_est.to(device), q_clean, q_noisy,
+                                          disc_seed, criterion=criterion, arch=arch)
+            stats.disc_losses.append(_synced(loss))
+            stats.disc.update(stats.disc_losses[-1], b)
+
+    def wait_for_labels(job):
+        with span("se.train.label_wait"):
+            t0 = time.perf_counter()
+            q_est = job()
+            stats.label_wait += time.perf_counter() - t0
+        return q_est
 
     def apply_oldest():
         aux, future, q_clean, q_noisy, disc_seed, b = pending.popleft()
-        t0 = time.perf_counter()
-        q_est = future.result()
-        stats.label_wait += time.perf_counter() - t0
+        q_est = wait_for_labels(future.result)
         discriminator_update(aux, q_est, q_clean, q_noisy, disc_seed, b)
 
     try:
@@ -171,37 +195,39 @@ def run_gan_epoch(state: GanTrainState, batches: Iterable, *, epoch: int, seed: 
             if batch.pesq_clean is None or batch.pesq_noisy is None:
                 raise ValueError("a batch without precomputed clean and noisy PESQ labels "
                                  "(Collator(precompute_labels=True) makes them)")
-            clean, noisy, q_clean, q_noisy = (_to_device(a, device) for a in batch)
-            seed_step = step_seed(seed, epoch, idx)
-            # the oldest deferred update, once the queue is full: its labels
-            # were computed while newer generator steps ran
-            if len(pending) >= lag > 0:
-                apply_oldest()
-            if step_mode == "fused":
-                metrics = fused(state, clean, noisy, seed_step, q_clean, q_noisy)
-                loss = float(metrics["loss"])
-                if gan_active:
-                    stats.gan_steps += 1
-                    stats.disc_losses.append(float(metrics["disc_loss"]))
-                    stats.disc.update(stats.disc_losses[-1], b)
-            else:
-                seed_gen, seed_disc = phase_seeds(seed_step)
-                aux = gan_generator_step(state, clean, noisy, seed_gen, **step_kw)
-                if gan_active:
-                    stats.gan_steps += 1
-                    job = functools.partial(estimate_labels, batch.audio,
-                                            *queue_host_copy(aux.est_audio), sample_rate)
-                    if lag:
-                        pending.append((aux, pool.submit(job), q_clean, q_noisy, seed_disc, b))
-                    else:
-                        t0 = time.perf_counter()
-                        q_est = job()
-                        stats.label_wait += time.perf_counter() - t0
-                        discriminator_update(aux, q_est, q_clean, q_noisy, seed_disc, b)
-                loss = float(aux.metrics["loss"])
-            stats.gen_losses.append(loss)
-            stats.gen.update(loss, b)
-            stats.batch_time.update(time.perf_counter() - t_end)
+            with span("se.train.step", (epoch, idx)):
+                with span("se.train.h2d"):
+                    clean, noisy, q_clean, q_noisy = (_to_device(a, device) for a in batch)
+                seed_step = step_seed(seed, epoch, idx)
+                # the oldest deferred update, once the queue is full: its
+                # labels were computed while newer generator steps ran
+                if len(pending) >= lag > 0:
+                    apply_oldest()
+                if step_mode == "fused":
+                    metrics = fused(state, clean, noisy, seed_step, q_clean, q_noisy)
+                    loss = _synced(metrics["loss"])
+                    if gan_active:
+                        stats.gan_steps += 1
+                        stats.disc_losses.append(_synced(metrics["disc_loss"]))
+                        stats.disc.update(stats.disc_losses[-1], b)
+                else:
+                    seed_gen, seed_disc = phase_seeds(seed_step)
+                    aux = gan_generator_step(state, clean, noisy, seed_gen, **step_kw)
+                    if gan_active:
+                        stats.gan_steps += 1
+                        job = functools.partial(estimate_labels, batch.audio,
+                                                *queue_host_copy(aux.est_audio), sample_rate,
+                                                step=(epoch, idx))
+                        if lag:
+                            future = pool.submit(job)
+                            pending.append((aux, future, q_clean, q_noisy, seed_disc, b))
+                        else:
+                            q_est = wait_for_labels(job)
+                            discriminator_update(aux, q_est, q_clean, q_noisy, seed_disc, b)
+                    loss = _synced(aux.metrics["loss"])
+                stats.gen_losses.append(loss)
+                stats.gen.update(loss, b)
+                stats.batch_time.update(time.perf_counter() - t_end)
             t_end = time.perf_counter()
             # one decision for every rank: a rank that stopped alone would
             # leave the others waiting in a collective

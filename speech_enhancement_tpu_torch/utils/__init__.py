@@ -16,8 +16,9 @@ from speech_enhancement_tpu_torch.utils.logging import (
 )
 from speech_enhancement_tpu_torch.utils.preemption import PreemptionGuard
 from speech_enhancement_tpu_torch.utils.profiling import (
-    StepTimer,
+    count,
     device_memory_stats,
+    span,
     trace,
 )
 
@@ -25,13 +26,14 @@ __all__ = [
     "AverageMeter",
     "PreemptionGuard",
     "ProgressMeter",
-    "StepTimer",
+    "count",
     "create_logger",
     "device_memory_stats",
     "latest_checkpoint",
     "load_checkpoint",
     "load_variables",
     "save_checkpoint",
+    "span",
     "sweep_checkpoints",
     "trace",
 ]
