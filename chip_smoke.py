@@ -9,11 +9,11 @@ line each (timings beside the card's name and power limit):
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``; whether
    scipy imports;
-2. build the nine native sources of ``csrc/`` (eight CUDA sources and the
+2. build the ten native sources of ``csrc/`` (nine CUDA sources and the
    PESQ engine), one compiler each, all started together (seconds);
    ptxas's registers and spills of the tensor-core instances of K1 and K2
-   (bf16 and fp32 each) and of K4 and K5 (no spills allowed), and their
-   resident warps per SM;
+   (bf16 and fp32 each), of K4 and K5 and of the add-and-norm kernels (no
+   spills allowed), and their resident warps per SM;
 3. K1 (all three instances: bf16 and fp32 on tensor cores at d 16 and 32,
    B'=3232 n=321 and n=1281 included, CUDA cores at d 4 and 8), K4 and K5
    (each at n_fft 400 / hop 100 and 300 / 75) against their plain PyTorch
@@ -36,7 +36,13 @@ line each (timings beside the card's name and power limit):
    instance), K4 and K5: device time, per-call time, plain time, bound and
    library time (K1 at n = 1281 against SDPA over 8 batch chunks; K4 and
    K5 against their library calls in 5 alternating rounds, medians and
-   per-round ratios printed);
+   per-round ratios printed); then the conformers' add-and-LayerNorm
+   kernel (``csrc/add_layer_norm.cu``, on the serving path since phase 4)
+   against its plain version at the batch cell's 8 s bucket (both
+   conformers' shapes) and the single cell's 6 s one, fp32 and bf16, y
+   row-major and channels-major, with and without skip, and its rows at
+   the time conformer's shapes (host enqueue per call beside
+   ``F.layer_norm``'s);
 6. K2 (the Shaw-attention backward, through the autograd route whose
    forward is K1; all three instances, B'=3232 n=321 included) and K6 (the
    axis swap, forward and backward) against their plain versions at
@@ -539,6 +545,120 @@ def sc_step_text(metrics: dict, gram, w, disc_grad_norm) -> str:
             f"{gram[0][0]:.4g}, e.e {gram[1][1]:.4g}, n.n {gram[2][2]:.4g}, c.e "
             f"{gram[0][1]:.4g}, c.n {gram[0][2]:.4g}, e.n {gram[1][2]:.4g}; discriminator "
             f"|grad| {float(disc_grad_norm):.4g}")
+
+
+# the conformers' add-and-norm at the serving cells' shapes ([rows, N, 64]):
+# the batch cell's 8 s bucket, 32 x 101 sequences of 1281 frames in the
+# time conformer and 32 x 1281 of 101 bins in the freq conformer, and the
+# single cell's 6 s bucket, 101 sequences of 961 frames
+NORM_SHAPES = {"8 s batch, time": (3232, 1281), "8 s batch, freq": (40992, 101),
+               "6 s single, time": (101, 961)}
+
+
+def add_norm_phase(card: str, gen: torch.Generator) -> dict:
+    """Phase 5's add-and-LayerNorm kernel (``csrc/add_layer_norm.cu``)
+    against its plain version at the serving shapes of :data:`NORM_SHAPES`:
+    fp32 and bf16, y row-major and channels-major (the conv residual), with
+    and without skip, scale 0.5 and 1, and without y; then its rows at the
+    two time-conformer shapes in fp32 (what the cells serve): device, per
+    call, plain (the eager mul, add and LayerNorm), bound, library
+    (``torch.add`` with alpha and ``F.layer_norm``), the host's enqueue per
+    call against ``F.layer_norm``'s.  Returns the rows and errors."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    from speech_enhancement_tpu_torch.models.conformer import LN_EPS
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
+
+    # fp32: the sum r is one rounding of x + s y either way (bit for bit);
+    # n differs in the statistics' summation order and rsqrt (values of
+    # order 1-5); bf16: a rounding of n may flip, and skip is added after
+    # it (two bf16 steps of order-1 values)
+    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+    errs = {"fp32": 0.0, "bf16": 0.0}
+    print("[5b add-and-norm] kernel vs plain, |kernel - plain| <= atol + rtol |plain|; "
+          "the sum r bit for bit", flush=True)
+
+    def operands(b, n, dtype):
+        norm = nn.LayerNorm(64, eps=LN_EPS).to(device="cuda", dtype=dtype)
+        with torch.no_grad():
+            norm.weight.copy_(1 + 0.5 * torch.randn(64, device="cuda", generator=gen))
+            norm.bias.copy_(0.5 * torch.randn(64, device="cuda", generator=gen))
+        x = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+        return norm, x
+
+    for label, (b, n) in NORM_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            norm, x = operands(b, n, dtype)
+            skip = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+            name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+            for layout in ("rows", "cols", "none"):
+                if layout == "rows":
+                    y = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+                elif layout == "cols":
+                    y = torch.randn(b, 64, n, device="cuda", generator=gen).to(dtype)
+                    y = y.transpose(1, 2)
+                else:
+                    y = None
+                worst, ok = 0.0, True
+                for scale, sk in ((0.5, None), (1.0, None), (0.5, skip), (1.0, skip)):
+                    before = fnorm.launches
+                    r, got = fnorm.add_layer_norm(x, y, scale, norm, sk)
+                    want_r, want = fnorm.add_layer_norm_reference(x, y, scale, norm, sk)
+                    torch.cuda.synchronize()
+                    err, good = within(got, want, *tols[dtype])
+                    worst = max(worst, err)
+                    ok &= (good and fnorm.launches == before + 1 and got.dtype == dtype
+                           and got.is_contiguous() and torch.equal(r, want_r))
+                    del r, got, want_r, want
+                errs[name] = max(errs[name], worst)
+                check(ok, f"add_layer_norm {label} [{b}, {n}, 64] {name}, y "
+                          f"{layout}, scale 0.5 and 1, with and without skip: one launch "
+                          f"each, max abs err {worst:.3e} (rtol {tols[dtype][0]}, atol "
+                          f"{tols[dtype][1]}), r bit for bit")
+                del y
+            del norm, x, skip
+            torch.cuda.empty_cache()
+
+    rows = {}
+    for label in ("8 s batch, time", "6 s single, time"):
+        b, n = NORM_SHAPES[label]
+        norm, x = operands(b, n, torch.float32)
+        y = torch.randn(b, n, 64, device="cuda", generator=gen)
+        yc = torch.randn(b, 64, n, device="cuda", generator=gen).transpose(1, 2)
+        kernel_fn = lambda: fnorm.add_layer_norm(x, y, 0.5, norm)  # noqa: E731
+        plain_fn = lambda: fnorm.add_layer_norm_reference(x, y, 0.5, norm)  # noqa: E731
+        call, plain = time_pair(kernel_fn, plain_fn)
+        dev = device_ms(kernel_fn)
+        lib = library(lambda: F.layer_norm(torch.add(x, y, alpha=0.5), (64,), norm.weight,
+                                           norm.bias, LN_EPS))
+        alone = library(lambda: F.layer_norm(x, (64,), norm.weight, norm.bias, LN_EPS))
+        cols = device_ms(lambda: fnorm.add_layer_norm(x, yc, 1.0, norm))
+        host = {}
+        for who, fn in (("kernel", kernel_fn),
+                        ("layer_norm", lambda: F.layer_norm(x, (64,), norm.weight, norm.bias,
+                                                            LN_EPS))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host[who] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+        nbytes = 4 * x.numel() * 4  # x, y read; r, n written
+        bnd = bound(0.0, nbytes)
+        r = row(f"add_layer_norm {label} [{b}, {n}, 64] fp32, x + 0.5 y, r and n written",
+                dev, call, plain, bnd, nbytes, lib, card,
+                f"; library: torch.add(alpha=0.5) and F.layer_norm; F.layer_norm alone "
+                f"{'n/a' if alone is None else f'{alone:.4f} ms'}; y channels-major (the conv "
+                f"residual) {cols:.4f} ms ({100 * bnd[0] / cols:.1f}% of bound); host enqueue "
+                f"per call: wrapper {host['kernel']:.1f} us, F.layer_norm {host['layer_norm']:.1f}"
+                f" us", shape=f"[{b}, {n}, 64]", dtype=torch.float32)
+        r.update(cols_device_ms=cols, layer_norm_ms=alone, host_us=host["kernel"],
+                 layer_norm_host_us=host["layer_norm"])
+        rows["batch" if label.startswith("8") else "single"] = r
+        del norm, x, y, yc
+        torch.cuda.empty_cache()
+    return {"rows": rows, "errs": errs}
 
 
 def training_phases(card: str, gen: torch.Generator) -> dict:
@@ -1163,6 +1283,7 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset
     from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.train import (
         create_gan_state,
@@ -1175,7 +1296,7 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     counters = {"K1 tensor-core": (fa, "mma_launches"), "K1 fp32 tensor-core": (fa, "tf32_launches"),
                 "K2 tensor-core": (fa, "bwd_mma_launches"),
                 "K2 fp32 tensor-core": (fa, "bwd_tf32_launches"), "K4": (fs, "stft_launches"),
-                "K5": (fs, "istft_launches")}
+                "K5": (fs, "istft_launches"), "add_layer_norm": (fnorm, "launches")}
     launches = dict.fromkeys(counters, 0)  # the CLI calls' own, summed
     last: dict = {}  # the latest CLI call's
 
@@ -1361,10 +1482,12 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
             results = result if sweep else [(None, result)]
             k1 = last["K1 tensor-core"] if "bf16" in extra else last["K1 fp32 tensor-core"]
             check(all(np.isfinite(m).all() and len(m) == 6 for _, m in results) and k1 > 0
-                  and last["K4"] > 0 and last["K5"] > 0 and len(results) == (2 if sweep else 1),
+                  and last["K4"] > 0 and last["K5"] > 0 and last["add_layer_norm"] > 0
+                  and len(results) == (2 if sweep else 1),
                   f"cli.inference_gan {' '.join(extra)}: six finite metrics "
                   f"{'; '.join(', '.join(f'{x:.3f}' for x in m) for _, m in results)}; "
-                  f"launches K1 {k1}, K4 {last['K4']}, K5 {last['K5']}")
+                  f"launches K1 {k1}, K4 {last['K4']}, K5 {last['K5']}, add_layer_norm "
+                  f"{last['add_layer_norm']}")
 
     for (mode, precision), t in timings.items():
         wait = ("labels inside the step" if t["label_wait_ms"] is None
@@ -1447,6 +1570,7 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
         main_diffuse,
     )
     from speech_enhancement_tpu_torch.models import DiffusionTSCNet, Discriminator, TSCNet
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.train import (
         ModuleState,
@@ -1577,17 +1701,18 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
     # IEEE fp32, the same generator seed; batch 8 x 2 s
     models = {k: no_dropout(m).eval() for k, m in diffusion_models("cuda").items()}
     noisy2s = make_batches(rng, 1, 8, 2 * SR)[0][1]
-    path_launches = {"K4": 0, "K5": 0}
+    path_launches = {"K4": 0, "K5": 0, "add_layer_norm": 0}
 
     def sampler(kind, schedule, plain):
         g = torch.Generator(device="cuda").manual_seed(SEED + 15)
         fn = sample_tsc if kind == "tsc-diffuse" else sample_waveform
-        k4, k5 = fs.stft_launches, fs.istft_launches
+        k4, k5, norms = fs.stft_launches, fs.istft_launches, fnorm.launches
         out, ms = event_ms(lambda: fn(models[kind], noisy2s, schedule, g, plain=plain))
         used = (fs.stft_launches - k4, fs.istft_launches - k5)
         if not plain:
             path_launches["K4"] += used[0]
             path_launches["K5"] += used[1]
+            path_launches["add_layer_norm"] += fnorm.launches - norms
         return out, ms, used
 
     for kind in FAMILIES:  # warm-up: the models' first calls at these shapes
@@ -1647,6 +1772,9 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
           f"launches / 6) and K5 {k5 / 6:.4f} ms ({100 * (k4 + k5) / device:.2f}% of device "
           f"time), busy share {device / host_ms:.3f} ({card})", flush=True)
     sampler_launches = dict(path_launches)
+    check(sampler_launches["add_layer_norm"] > 0,
+          f"sample_tsc's DiffusionTSCNet conformers took the add-and-norm kernel: "
+          f"{sampler_launches['add_layer_norm']} launches")
 
     # (c) the entry points on the synthetic corpus: one epoch of each arch,
     # inference --fast --validate-epochs on its checkpoints, and the
@@ -2118,15 +2246,17 @@ DP_ROWS = 8  # the global batch of the data-parallel checks: 8 x 1 s
 
 
 def kernel_counts() -> dict:
-    """The launch counters of K1, K2, K4 and K5 and of the int8 GEMMs."""
+    """The launch counters of K1, K2, K4 and K5, of the int8 GEMMs and of
+    the add-and-norm kernel."""
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.ops import int8
 
     return {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
             "K2 tensor-core": fa.bwd_mma_launches, "K2 fp32 tensor-core": fa.bwd_tf32_launches,
             "K4": fs.stft_launches, "K5": fs.istft_launches,
-            "int8 GEMM": int8.LAUNCHES["int8_conv2d"]}
+            "int8 GEMM": int8.LAUNCHES["int8_conv2d"], "add_layer_norm": fnorm.launches}
 
 
 def counts_since(before: dict) -> dict:
@@ -2199,7 +2329,8 @@ def int8_phase(card: str) -> dict:
                                                                   ("int8", "fp32"))}
     torch.cuda.synchronize()
     launches = counts_since(before)
-    for name in ("K1 tensor-core", "K1 fp32 tensor-core", "K4", "K5", "int8 GEMM"):
+    for name in ("K1 tensor-core", "K1 fp32 tensor-core", "K4", "K5", "int8 GEMM",
+                 "add_layer_norm"):
         check(launches[name] > 0, f"{name} launched {launches[name]} times by the int8 "
                                   f"serving batches (bf16 and fp32)")
     timings: dict = {"launches": launches}
@@ -2704,7 +2835,9 @@ def parallel_phase(card: str, user_precision: tuple) -> dict:
         check(err <= 2e-5, f"Enhancer(devices=['cuda:0', 'cuda:0'], fused_stft=True) on 5 "
                            f"ragged utterances (6 rows, 3 + 3) vs one device: max abs "
                            f"{err:.3e} (atol 2e-5, as tests/test_parallel.py)")
-        for name in ("K1 fp32 tensor-core", "K4", "K5"):
+        for name in ("K1 fp32 tensor-core", "K4", "K5", "add_layer_norm"):
+            check(serving[name] > 0, f"{name} launched {serving[name]} times by the "
+                                     f"two-replica Enhancer")
             launches[name] += serving[name]
         metrics = {}
         for n in (1, 2):
@@ -2735,11 +2868,12 @@ QUALITY_CORPUS_SHA256 = "94497e119e15af6d39686e24ee62939c5bd732fc5475617dfa1500e
 def zero_counts() -> None:
     """Every launch counter of :func:`kernel_counts` set to 0."""
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.ops import int8
 
     fa.mma_launches = fa.tf32_launches = fa.bwd_mma_launches = fa.bwd_tf32_launches = 0
-    fs.stft_launches = fs.istft_launches = 0
+    fs.stft_launches = fs.istft_launches = fnorm.launches = 0
     int8.LAUNCHES["int8_conv2d"] = 0
 
 
@@ -3216,6 +3350,7 @@ def main() -> int:
     from speech_enhancement_tpu_torch.models import TSCNet
     from speech_enhancement_tpu_torch.ops import _native
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_relayout as fr
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
 
@@ -3243,7 +3378,7 @@ def main() -> int:
     # 2. build: one compiler per source, all at once
     t0 = time.perf_counter()
     builds = (fs.build, fa.build, fa.build_mma, fa.build_tf32, fa.build_bwd, fa.build_bwd_mma,
-              fa.build_bwd_tf32, fr.build, pesq.build)
+              fa.build_bwd_tf32, fr.build, fnorm.build, pesq.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for build in [pool.submit(b) for b in builds]:
             build.result()
@@ -3262,7 +3397,9 @@ def main() -> int:
             ("shaw_attention_bwd_tf32", ["bwd_query_tf32_kernelILi16", "bwd_key_tf32_kernelILi16",
                                          "bwd_query_tf32_kernelILi32", "bwd_key_tf32_kernelILi32"],
              "K2 fp32 tensor-core instance"),
-            ("stft", ["11stft_kernel", "12istft_kernel"], "K4 and K5")):  # mangled lengths
+            ("stft", ["11stft_kernel", "12istft_kernel"], "K4 and K5"),  # mangled lengths
+            ("add_layer_norm", ["add_layer_norm_c64_kernel", "add_layer_norm_any_kernel"],
+             "add-and-norm")):
         report = ptxas_report(_native.build_logs.get(library, ""))
         for name, lines in sorted(report.items()):
             short = next((k.lstrip("0123456789") for k in kernels if k in name), name)
@@ -3401,6 +3538,7 @@ def main() -> int:
     plain_fp32 = Enhancer(plain_model, matmul_precision=None, device="cuda")
 
     fa.launches = fa.mma_launches = fa.tf32_launches = fs.stft_launches = fs.istft_launches = 0
+    fnorm.launches = 0
     t0 = time.perf_counter()
     out = {"kernel bf16": kernel_bf16.enhance(utts, batch_size=8),
            "kernel fp32": kernel_fp32.enhance(utts, batch_size=8),
@@ -3408,7 +3546,8 @@ def main() -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
-                "K4": fs.stft_launches, "K5": fs.istft_launches}
+                "K4": fs.stft_launches, "K5": fs.istft_launches,
+                "add_layer_norm": fnorm.launches}
     main_cuda_core = fa.launches
     print(f"[4 main path] 12 utterances {min(lengths)}-{max(lengths)} samples, batch 8, "
           f"bf16 + fp32 (matmul_precision None and the default) kernel path in {main_s:.2f} s "
@@ -3576,6 +3715,7 @@ def main() -> int:
                                        f"{lib_label} {lib_med:.4f} ms (medians in turns)")
     del x, spec
     torch.cuda.empty_cache()
+    norm_phase = add_norm_phase(card, gen)
 
     # 6-8. the training path
     train = training_phases(card, gen)
@@ -3667,6 +3807,12 @@ def main() -> int:
          "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
          **by_path(launches["K5"], 0, el["K5"], diffusion["launches"]["K5"], name="K5"),
          "max_abs_err": errs["K5"], **rows["K5"]},
+        {"name": "add_layer_norm", "route": "cuda", "source": f"{pkg}/csrc/add_layer_norm.cu",
+         "replaces": "no TPU kernel: aten's LayerNorm and the adds around it",
+         **by_path(launches["add_layer_norm"], 0, el["add_layer_norm"],
+                   diffusion["launches"]["add_layer_norm"], name="add_layer_norm"),
+         "max_abs_err": norm_phase["errs"], **norm_phase["rows"]["batch"],
+         "single": norm_phase["rows"]["single"]},
         {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
          "launches": tl["K6"], "max_abs_err": train["errs"]["K6"], **train["rows"]["K6"]},

@@ -1,0 +1,76 @@
+"""The reader of ``norm_roofline.batch``: None without a trace, without
+the program's counters, or when the trace's launches of the kernel differ
+from the counted ones; else the counted bytes over the card's bandwidth
+over the kernel's device time, here from counters the program stored under
+a (CPU) profiler session and a synthetic trace summary."""
+
+import time
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from sebench import harness
+from sebench.reference import flops
+from sebench.trace import TraceSummary
+from speech_enhancement_tpu_torch.utils import profiling
+
+READER = harness.load_module("metrics", "norm_roofline.batch")
+PEAKS = flops.PEAKS["H100"]
+C64 = "void (anonymous namespace)::add_layer_norm_c64_kernel<float, 1>(float const*)"
+ANY = "void (anonymous namespace)::add_layer_norm_any_kernel<float>(float const*)"
+LN = "void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float>"
+
+
+def _summary(kernels: dict) -> TraceSummary:
+    """``kernels``: name -> (device seconds, launches)."""
+    return TraceSummary(window_s=1.0, busy_s=1.0,
+                        kernel_launches=sum(n for _, n in kernels.values()),
+                        device_ops=[], idle_gaps=[],
+                        kernel_s={k: s for k, (s, _) in kernels.items()},
+                        kernel_count={k: n for k, (_, n) in kernels.items()})
+
+
+def _bench(counts: list[tuple[str, float]], kernels: dict | None):
+    """A bench whose window holds ``counts``, stored by the program while a
+    profiler session recorded."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.clear()
+        # the window maps onto the store's clock a few us apart at each
+        # read: 10 ms of margin on either side
+        start = time.perf_counter()
+        time.sleep(0.01)
+        for name, n in counts:
+            profiling.count(name, n)
+        time.sleep(0.01)
+        end = time.perf_counter()
+    return SimpleNamespace(summary=None if kernels is None else _summary(kernels),
+                           peaks=PEAKS, window_t=(start, end))
+
+
+COUNTS = [("norm.launches", 1), ("norm.bytes", 4.0e9), ("norm.launches", 1),
+          ("norm.bytes", 1.0e9), ("norm.launches", 1), ("norm.bytes", 1.7e9)]
+
+
+def test_share_is_counted_bytes_over_bandwidth_over_kernel_time():
+    bench = _bench(COUNTS, {C64: (2.0e-3, 2), ANY: (0.5e-3, 1), LN: (9.0, 40)})
+    want = 100.0 * (6.7e9 / PEAKS["bytes"]) / 2.5e-3
+    assert READER.read(bench) == pytest.approx(want, rel=1e-12)
+
+
+def test_none_without_a_trace_or_a_peak_table():
+    assert READER.read(_bench(COUNTS, None)) is None
+    bench = _bench(COUNTS, {C64: (2.0e-3, 3)})
+    bench.peaks = None
+    assert READER.read(bench) is None
+
+
+def test_none_when_the_launches_disagree():
+    assert READER.read(_bench(COUNTS, {C64: (2.0e-3, 2)})) is None
+    assert READER.read(_bench(COUNTS, {C64: (2.0e-3, 4)})) is None
+
+
+def test_none_where_the_program_counts_nothing():
+    """A commit before the kernel: aten's LayerNorm in the trace, no
+    counters in the store."""
+    assert READER.read(_bench([], {LN: (9.0, 40)})) is None

@@ -7,9 +7,17 @@ are the ones ``export_tscnet`` writes (``ff1.fn.fn.net.0``, ``attn.fn.to_q``,
 ``conv.net.5.running_mean``, ...).
 
 LayerNorms use eps 1e-6, flax's default, as the JAX package does.
+
+Without autograd (``torch.is_grad_enabled()`` False: serving, evaluation,
+the samplers) each residual add goes with the LayerNorm after it into one
+call of ``ops.fused_norm.add_layer_norm``, one kernel on a card; on the
+CPU that call is the same eager ops.  Under autograd the block runs the
+eager sequence.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 from torch import nn
@@ -19,6 +27,7 @@ from speech_enhancement_tpu_torch.ops.fused_attention import (
     fused_shaw_attention,
     relative_index,
 )
+from speech_enhancement_tpu_torch.ops.fused_norm import add_layer_norm
 
 LN_EPS = 1e-6
 
@@ -144,10 +153,18 @@ class ConvModule(nn.Module):
     def forward(self, x):
         return self.net(x)
 
+    def after_norm(self, x):
+        """The module past its LayerNorm (``net[1:]``), on the normalized
+        input: ``[B, C, N]`` seen as ``[B, N, C]``."""
+        for layer in itertools.islice(self.net, 1, None):
+            x = layer(x)
+        return x
+
 
 class ConformerBlock(nn.Module):
     """Residuals around each sub-module, half-scaled feed-forwards, trailing
-    LayerNorm (``conformer.py:189-220``)."""
+    LayerNorm (``conformer.py:189-220``).  ``skip``, when given, is added
+    to the output (the TSCB's outer residual)."""
 
     def __init__(self, dim: int, dim_head: int = 16, heads: int = 4, ff_mult: int = 4,
                  conv_expansion_factor: int = 2, conv_kernel_size: int = 31,
@@ -162,9 +179,26 @@ class ConformerBlock(nn.Module):
         self.ff2 = Scale(0.5, PreNorm(dim, FeedForward(dim, ff_mult, ff_dropout)))
         self.post_norm = nn.LayerNorm(dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
+        if not torch.is_grad_enabled():
+            return self._add_norm_forward(x, skip)
         x = self.ff1(x) + x
         x = self.attn(x) + x
         x = self.conv(x) + x
         x = self.ff2(x) + x
-        return self.post_norm(x)
+        x = self.post_norm(x)
+        return x if skip is None else x + skip
+
+    def _add_norm_forward(self, x: torch.Tensor, skip: torch.Tensor | None) -> torch.Tensor:
+        """The same sequence with each LayerNorm and the add before it in one
+        ``add_layer_norm`` call: ``x`` is the residual stream, ``n`` the next
+        sub-module's normalized input."""
+        if skip is x:  # the outer residual is the block's input: one copy serves both
+            skip = x = x.contiguous()
+        ff1, ff2 = self.ff1, self.ff2
+        _, n = add_layer_norm(x, None, 1.0, ff1.fn.norm)
+        x, n = add_layer_norm(x, ff1.fn.fn(n), ff1.scale, self.attn.norm)
+        x, n = add_layer_norm(x, self.attn.fn(n), 1.0, self.conv.net[0])
+        x, n = add_layer_norm(x, self.conv.after_norm(n), 1.0, ff2.fn.norm)
+        return add_layer_norm(x, ff2.fn.fn(n), ff2.scale, self.post_norm, skip,
+                              keep_sum=False)[1]

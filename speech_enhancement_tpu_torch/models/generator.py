@@ -94,7 +94,8 @@ class TSCB(nn.Module):
     """Time conformer over ``[B*F, T, C]``, then freq conformer over
     ``[B*T, F, C]``, with a residual outside each (``generator.py:109-156``).
     Only the time conformer takes ``fused_attention``; the freq conformer
-    stays eager, as in the JAX package.
+    stays eager, as in the JAX package.  Each conformer adds the outer
+    residual itself (``skip``), after its post-norm.
 
     ``fused_relayout=True`` runs the fold between the two conformers,
     ``[B, F, T, C] -> [B, T, F, C]``, through the K6 swap kernel
@@ -116,13 +117,13 @@ class TSCB(nn.Module):
         b, c, t, f = x.shape
         with span("se.model.tscb.time"):
             x_t = x.permute(0, 3, 2, 1).reshape(b * f, t, c)
-            x_t = self.time_conformer(x_t) + x_t
+            x_t = self.time_conformer(x_t, skip=x_t)
         with span("se.model.tscb.freq"):
             if self.fused_relayout:
                 x_f = swap_seq_axes(x_t.view(b, f, t, c)).view(b * t, f, c)
             else:
                 x_f = x_t.view(b, f, t, c).permute(0, 2, 1, 3).reshape(b * t, f, c)
-            x_f = self.freq_conformer(x_f) + x_f
+            x_f = self.freq_conformer(x_f, skip=x_f)
             return x_f.view(b, t, f, c).permute(0, 3, 1, 2)
 
 
