@@ -9,11 +9,12 @@ line each (timings beside the card's name and power limit):
 
 1. the device, and ``nvidia-smi --query-gpu=name,power.limit``; whether
    scipy imports;
-2. build the ten native sources of ``csrc/`` (nine CUDA sources and the
+2. build the eleven native sources of ``csrc/`` (ten CUDA sources and the
    PESQ engine), one compiler each, all started together (seconds);
    ptxas's registers and spills of the tensor-core instances of K1 and K2
-   (bf16 and fp32 each), of K4 and K5 and of the add-and-norm kernels (no
-   spills allowed), and their resident warps per SM;
+   (bf16 and fp32 each), of K4 and K5, of the add-and-norm kernels and of
+   the conv-module kernel (no spills allowed), and their resident warps
+   per SM;
 3. K1 (all three instances: bf16 and fp32 on tensor cores at d 16 and 32,
    B'=3232 n=321 and n=1281 included, CUDA cores at d 4 and 8), K4 and K5
    (each at n_fft 400 / hop 100 and 300 / 75) against their plain PyTorch
@@ -42,7 +43,12 @@ line each (timings beside the card's name and power limit):
    conformers' shapes) and the single cell's 6 s one, fp32 and bf16, y
    row-major and channels-major, with and without skip, and its rows at
    the time conformer's shapes (host enqueue per call beside
-   ``F.layer_norm``'s);
+   ``F.layer_norm``'s); then the conv module's GLU, depthwise k31,
+   BatchNorm and swish kernel (``csrc/conv_module.cu``, on the serving
+   path since phase 4) against its plain version at the same shapes and
+   the single cell's freq conformer, fp32 and bf16, u channels-major and
+   as rows, and its rows at the 8 s batch bucket (fp32, bf16) and the 6 s
+   batch-1 request (fp32) beside the module's eager layers;
 6. K2 (the Shaw-attention backward, through the autograd route whose
    forward is K1; all three instances, B'=3232 n=321 included) and K6 (the
    axis swap, forward and backward) against their plain versions at
@@ -657,6 +663,112 @@ def add_norm_phase(card: str, gen: torch.Generator) -> dict:
                  layer_norm_host_us=host["layer_norm"])
         rows["batch" if label.startswith("8") else "single"] = r
         del norm, x, y, yc
+        torch.cuda.empty_cache()
+    return {"rows": rows, "errs": errs}
+
+
+# the conv module's middle at the serving cells' shapes ([B', 256, N] in):
+# the conformers' shapes of NORM_SHAPES and the single cell's 6 s freq one
+CONV_SHAPES = {**NORM_SHAPES, "6 s single, freq": (961, 101)}
+
+
+def conv_module_phase(card: str, gen: torch.Generator) -> dict:
+    """Phase 5's conv-module kernel (``csrc/conv_module.cu``: GLU, depthwise
+    k31, eval BatchNorm, swish) against its plain version at the serving
+    shapes of :data:`CONV_SHAPES`, fp32 and bf16, u channels-major and as
+    rows (a channels-last pointwise product); then its rows at the 8 s
+    batch bucket's time conformer (fp32 and bf16) and the 6 s batch-1
+    request's (fp32), u in the layout the model's pointwise conv hands
+    over: device, per call, plain (the eager op sequence), bound (u read
+    once, the output written once), library (the module's eager layers:
+    ``nn.GLU``, ``DepthWiseConv1d``, ``BatchNorm1d``, ``Swish``).  Returns
+    the rows and errors."""
+    from speech_enhancement_tpu_torch.models.conformer import ConvModule
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
+
+    # relative RMS: fp32 differs in BatchNorm's arithmetic and the sum's
+    # order; bf16 in a rounding of an intermediate that may flip
+    tols = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    errs = {"fp32": 0.0, "bf16": 0.0}
+    print("[5c conv module] kernel vs plain (relative RMS)", flush=True)
+
+    def module(dtype):
+        """A ConvModule(64) in eval mode, weights and statistics from ``gen``."""
+        m = ConvModule(64).to("cuda").eval()
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                        / math.sqrt(p[0].numel() if p.ndim > 1 else 4))
+            norm = m.net[5]
+            norm.weight.add_(1.0)
+            norm.running_mean.copy_(0.5 * torch.randn(128, device="cuda", generator=gen))
+            norm.running_var.copy_(torch.rand(128, device="cuda", generator=gen) * 1.5 + 0.5)
+        return m.to(dtype)
+
+    def model_u(m, b, n, dtype):
+        """The first pointwise conv's output, as the model makes it."""
+        x = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+        with torch.no_grad():
+            return m.net[2](m.net[1](x))
+
+    for label, (b, n) in CONV_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            m = module(dtype)
+            conv, norm = m.net[4].conv, m.net[5]
+            name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+            for layout in ("cols", "rows"):
+                if layout == "cols":
+                    u = torch.randn(b, 256, n, device="cuda", generator=gen).to(dtype)
+                else:
+                    u = torch.randn(b, n, 256, device="cuda", generator=gen).to(dtype)
+                    u = u.transpose(1, 2)
+                before = fcm.launches
+                with torch.no_grad():
+                    got = fcm.glu_conv_swish(u, conv, norm)
+                    want = fcm.glu_conv_swish_reference(u, conv, norm)
+                torch.cuda.synchronize()
+                err = rel_rms_t(got, want)
+                errs[name] = max(errs[name], err)
+                check(err <= tols[dtype] and fcm.launches == before + 1 and got.dtype == dtype
+                      and got.is_contiguous() and got.shape == (b, 128, n),
+                      f"glu_conv_swish {label} [{b}, 256, {n}] {name}, u {layout}: one launch, "
+                      f"relative RMS {err:.3e} (tolerance {tols[dtype]})")
+                del u, got, want
+            del m, conv, norm
+            torch.cuda.empty_cache()
+
+    rows = {}
+    for key, label, dtype in (("batch", "8 s batch, time", torch.float32),
+                              ("single", "6 s single, time", torch.float32),
+                              ("batch_bf16", "8 s batch, time", torch.bfloat16)):
+        b, n = CONV_SHAPES[label]
+        name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+        m = module(dtype)
+        net, conv, norm = m.net, m.net[4].conv, m.net[5]
+        u = model_u(m, b, n, dtype)
+        layout = {fcm.COLS: "channels-major", fcm.ROWS: "rows"}.get(fcm.u_layout(u), "other")
+        if fcm.u_layout(u) == fcm.ROWS:  # the other layout, timed beside it
+            other = torch.randn(b, 256, n, device="cuda", generator=gen).to(dtype)
+        else:
+            other = torch.randn(b, n, 256, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+        with torch.no_grad():
+            kernel_fn = lambda: fcm.glu_conv_swish(u, conv, norm)  # noqa: E731
+            plain_fn = lambda: fcm.glu_conv_swish_reference(u, conv, norm)  # noqa: E731
+            call, plain = time_pair(kernel_fn, plain_fn)
+            dev = device_ms(kernel_fn)
+            lib = library(lambda: net[6](net[5](net[4](net[3](u)))))
+            dev_other = device_ms(lambda: fcm.glu_conv_swish(other, conv, norm))
+        nbytes = u.numel() * u.element_size() * 3 / 2
+        bnd = bound(0.0, nbytes)
+        r = row(f"glu_conv_swish {label} [{b}, 256, {n}] {name}, u {layout}", dev, call, plain,
+                bnd, nbytes, lib, card,
+                f"; library: the module's eager GLU, pad, depthwise conv, BatchNorm, swish; u "
+                f"{'channels-major' if layout == 'rows' else 'rows'} {dev_other:.4f} ms "
+                f"({100 * bnd[0] / dev_other:.1f}% of bound)",
+                shape=f"[{b}, 256, {n}]", dtype=dtype)
+        r.update(u_layout=layout, other_layout_device_ms=dev_other)
+        rows[key] = r
+        del m, net, conv, norm, u, other
         torch.cuda.empty_cache()
     return {"rows": rows, "errs": errs}
 
@@ -1283,6 +1395,7 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset
     from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.train import (
@@ -1296,7 +1409,8 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     counters = {"K1 tensor-core": (fa, "mma_launches"), "K1 fp32 tensor-core": (fa, "tf32_launches"),
                 "K2 tensor-core": (fa, "bwd_mma_launches"),
                 "K2 fp32 tensor-core": (fa, "bwd_tf32_launches"), "K4": (fs, "stft_launches"),
-                "K5": (fs, "istft_launches"), "add_layer_norm": (fnorm, "launches")}
+                "K5": (fs, "istft_launches"), "add_layer_norm": (fnorm, "launches"),
+                "conv_module": (fcm, "launches")}
     launches = dict.fromkeys(counters, 0)  # the CLI calls' own, summed
     last: dict = {}  # the latest CLI call's
 
@@ -1483,11 +1597,11 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
             k1 = last["K1 tensor-core"] if "bf16" in extra else last["K1 fp32 tensor-core"]
             check(all(np.isfinite(m).all() and len(m) == 6 for _, m in results) and k1 > 0
                   and last["K4"] > 0 and last["K5"] > 0 and last["add_layer_norm"] > 0
-                  and len(results) == (2 if sweep else 1),
+                  and last["conv_module"] > 0 and len(results) == (2 if sweep else 1),
                   f"cli.inference_gan {' '.join(extra)}: six finite metrics "
                   f"{'; '.join(', '.join(f'{x:.3f}' for x in m) for _, m in results)}; "
                   f"launches K1 {k1}, K4 {last['K4']}, K5 {last['K5']}, add_layer_norm "
-                  f"{last['add_layer_norm']}")
+                  f"{last['add_layer_norm']}, conv_module {last['conv_module']}")
 
     for (mode, precision), t in timings.items():
         wait = ("labels inside the step" if t["label_wait_ms"] is None
@@ -1570,6 +1684,7 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
         main_diffuse,
     )
     from speech_enhancement_tpu_torch.models import DiffusionTSCNet, Discriminator, TSCNet
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.train import (
@@ -1701,18 +1816,19 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
     # IEEE fp32, the same generator seed; batch 8 x 2 s
     models = {k: no_dropout(m).eval() for k, m in diffusion_models("cuda").items()}
     noisy2s = make_batches(rng, 1, 8, 2 * SR)[0][1]
-    path_launches = {"K4": 0, "K5": 0, "add_layer_norm": 0}
+    path_launches = {"K4": 0, "K5": 0, "add_layer_norm": 0, "conv_module": 0}
 
     def sampler(kind, schedule, plain):
         g = torch.Generator(device="cuda").manual_seed(SEED + 15)
         fn = sample_tsc if kind == "tsc-diffuse" else sample_waveform
-        k4, k5, norms = fs.stft_launches, fs.istft_launches, fnorm.launches
+        k4, k5, norms, convs = fs.stft_launches, fs.istft_launches, fnorm.launches, fcm.launches
         out, ms = event_ms(lambda: fn(models[kind], noisy2s, schedule, g, plain=plain))
         used = (fs.stft_launches - k4, fs.istft_launches - k5)
         if not plain:
             path_launches["K4"] += used[0]
             path_launches["K5"] += used[1]
             path_launches["add_layer_norm"] += fnorm.launches - norms
+            path_launches["conv_module"] += fcm.launches - convs
         return out, ms, used
 
     for kind in FAMILIES:  # warm-up: the models' first calls at these shapes
@@ -1772,9 +1888,10 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
           f"launches / 6) and K5 {k5 / 6:.4f} ms ({100 * (k4 + k5) / device:.2f}% of device "
           f"time), busy share {device / host_ms:.3f} ({card})", flush=True)
     sampler_launches = dict(path_launches)
-    check(sampler_launches["add_layer_norm"] > 0,
-          f"sample_tsc's DiffusionTSCNet conformers took the add-and-norm kernel: "
-          f"{sampler_launches['add_layer_norm']} launches")
+    check(sampler_launches["add_layer_norm"] > 0 and sampler_launches["conv_module"] > 0,
+          f"sample_tsc's DiffusionTSCNet conformers took the add-and-norm and conv-module "
+          f"kernels: {sampler_launches['add_layer_norm']} and "
+          f"{sampler_launches['conv_module']} launches")
 
     # (c) the entry points on the synthetic corpus: one epoch of each arch,
     # inference --fast --validate-epochs on its checkpoints, and the
@@ -2247,8 +2364,9 @@ DP_ROWS = 8  # the global batch of the data-parallel checks: 8 x 1 s
 
 def kernel_counts() -> dict:
     """The launch counters of K1, K2, K4 and K5, of the int8 GEMMs and of
-    the add-and-norm kernel."""
+    the add-and-norm and conv-module kernels."""
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.ops import int8
@@ -2256,7 +2374,8 @@ def kernel_counts() -> dict:
     return {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
             "K2 tensor-core": fa.bwd_mma_launches, "K2 fp32 tensor-core": fa.bwd_tf32_launches,
             "K4": fs.stft_launches, "K5": fs.istft_launches,
-            "int8 GEMM": int8.LAUNCHES["int8_conv2d"], "add_layer_norm": fnorm.launches}
+            "int8 GEMM": int8.LAUNCHES["int8_conv2d"], "add_layer_norm": fnorm.launches,
+            "conv_module": fcm.launches}
 
 
 def counts_since(before: dict) -> dict:
@@ -2330,7 +2449,7 @@ def int8_phase(card: str) -> dict:
     torch.cuda.synchronize()
     launches = counts_since(before)
     for name in ("K1 tensor-core", "K1 fp32 tensor-core", "K4", "K5", "int8 GEMM",
-                 "add_layer_norm"):
+                 "add_layer_norm", "conv_module"):
         check(launches[name] > 0, f"{name} launched {launches[name]} times by the int8 "
                                   f"serving batches (bf16 and fp32)")
     timings: dict = {"launches": launches}
@@ -2835,7 +2954,7 @@ def parallel_phase(card: str, user_precision: tuple) -> dict:
         check(err <= 2e-5, f"Enhancer(devices=['cuda:0', 'cuda:0'], fused_stft=True) on 5 "
                            f"ragged utterances (6 rows, 3 + 3) vs one device: max abs "
                            f"{err:.3e} (atol 2e-5, as tests/test_parallel.py)")
-        for name in ("K1 fp32 tensor-core", "K4", "K5", "add_layer_norm"):
+        for name in ("K1 fp32 tensor-core", "K4", "K5", "add_layer_norm", "conv_module"):
             check(serving[name] > 0, f"{name} launched {serving[name]} times by the "
                                      f"two-replica Enhancer")
             launches[name] += serving[name]
@@ -2868,12 +2987,13 @@ QUALITY_CORPUS_SHA256 = "94497e119e15af6d39686e24ee62939c5bd732fc5475617dfa1500e
 def zero_counts() -> None:
     """Every launch counter of :func:`kernel_counts` set to 0."""
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.ops import int8
 
     fa.mma_launches = fa.tf32_launches = fa.bwd_mma_launches = fa.bwd_tf32_launches = 0
-    fs.stft_launches = fs.istft_launches = fnorm.launches = 0
+    fs.stft_launches = fs.istft_launches = fnorm.launches = fcm.launches = 0
     int8.LAUNCHES["int8_conv2d"] = 0
 
 
@@ -3350,6 +3470,7 @@ def main() -> int:
     from speech_enhancement_tpu_torch.models import TSCNet
     from speech_enhancement_tpu_torch.ops import _native
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_relayout as fr
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
@@ -3378,7 +3499,7 @@ def main() -> int:
     # 2. build: one compiler per source, all at once
     t0 = time.perf_counter()
     builds = (fs.build, fa.build, fa.build_mma, fa.build_tf32, fa.build_bwd, fa.build_bwd_mma,
-              fa.build_bwd_tf32, fr.build, fnorm.build, pesq.build)
+              fa.build_bwd_tf32, fr.build, fnorm.build, fcm.build, pesq.build)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         for build in [pool.submit(b) for b in builds]:
             build.result()
@@ -3399,7 +3520,8 @@ def main() -> int:
              "K2 fp32 tensor-core instance"),
             ("stft", ["11stft_kernel", "12istft_kernel"], "K4 and K5"),  # mangled lengths
             ("add_layer_norm", ["add_layer_norm_c64_kernel", "add_layer_norm_any_kernel"],
-             "add-and-norm")):
+             "add-and-norm"),
+            ("conv_module", ["glu_conv_swish_kernel"], "conv-module")):
         report = ptxas_report(_native.build_logs.get(library, ""))
         for name, lines in sorted(report.items()):
             short = next((k.lstrip("0123456789") for k in kernels if k in name), name)
@@ -3538,7 +3660,7 @@ def main() -> int:
     plain_fp32 = Enhancer(plain_model, matmul_precision=None, device="cuda")
 
     fa.launches = fa.mma_launches = fa.tf32_launches = fs.stft_launches = fs.istft_launches = 0
-    fnorm.launches = 0
+    fnorm.launches = fcm.launches = 0
     t0 = time.perf_counter()
     out = {"kernel bf16": kernel_bf16.enhance(utts, batch_size=8),
            "kernel fp32": kernel_fp32.enhance(utts, batch_size=8),
@@ -3547,7 +3669,7 @@ def main() -> int:
     main_s = time.perf_counter() - t0
     launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
                 "K4": fs.stft_launches, "K5": fs.istft_launches,
-                "add_layer_norm": fnorm.launches}
+                "add_layer_norm": fnorm.launches, "conv_module": fcm.launches}
     main_cuda_core = fa.launches
     print(f"[4 main path] 12 utterances {min(lengths)}-{max(lengths)} samples, batch 8, "
           f"bf16 + fp32 (matmul_precision None and the default) kernel path in {main_s:.2f} s "
@@ -3716,6 +3838,7 @@ def main() -> int:
     del x, spec
     torch.cuda.empty_cache()
     norm_phase = add_norm_phase(card, gen)
+    conv_phase = conv_module_phase(card, gen)
 
     # 6-8. the training path
     train = training_phases(card, gen)
@@ -3813,6 +3936,13 @@ def main() -> int:
                    diffusion["launches"]["add_layer_norm"], name="add_layer_norm"),
          "max_abs_err": norm_phase["errs"], **norm_phase["rows"]["batch"],
          "single": norm_phase["rows"]["single"]},
+        {"name": "glu_conv_swish", "route": "cuda", "source": f"{pkg}/csrc/conv_module.cu",
+         "replaces": "no TPU kernel: the conv module's eager GLU, pad, depthwise conv, "
+                     "BatchNorm and swish",
+         **by_path(launches["conv_module"], 0, el["conv_module"],
+                   diffusion["launches"]["conv_module"], name="conv_module"),
+         "max_rel_rms": conv_phase["errs"], **conv_phase["rows"]["batch"],
+         "single": conv_phase["rows"]["single"], "bf16": conv_phase["rows"]["batch_bf16"]},
         {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
          "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
          "launches": tl["K6"], "max_abs_err": train["errs"]["K6"], **train["rows"]["K6"]},

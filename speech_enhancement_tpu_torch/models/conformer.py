@@ -10,9 +10,11 @@ LayerNorms use eps 1e-6, flax's default, as the JAX package does.
 
 Without autograd (``torch.is_grad_enabled()`` False: serving, evaluation,
 the samplers) each residual add goes with the LayerNorm after it into one
-call of ``ops.fused_norm.add_layer_norm``, one kernel on a card; on the
-CPU that call is the same eager ops.  Under autograd the block runs the
-eager sequence.
+call of ``ops.fused_norm.add_layer_norm``, and the conv module's GLU,
+depthwise conv, BatchNorm (eval mode) and swish go into one call of
+``ops.fused_conv_module.glu_conv_swish``: one kernel each on a card; on
+the CPU the same eager ops.  Under autograd the block runs the eager
+sequence.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from speech_enhancement_tpu_torch.ops.fused_attention import (
     fused_shaw_attention,
     relative_index,
 )
+from speech_enhancement_tpu_torch.ops.fused_conv_module import eager_reason, glu_conv_swish
 from speech_enhancement_tpu_torch.ops.fused_norm import add_layer_norm
 
 LN_EPS = 1e-6
@@ -155,8 +158,19 @@ class ConvModule(nn.Module):
 
     def after_norm(self, x):
         """The module past its LayerNorm (``net[1:]``), on the normalized
-        input: ``[B, C, N]`` seen as ``[B, N, C]``."""
-        for layer in itertools.islice(self.net, 1, None):
+        input: ``[B, C, N]`` seen as ``[B, N, C]``.  GLU -> depthwise conv
+        -> BatchNorm -> swish is one ``fused_conv_module.glu_conv_swish``
+        call where ``eager_reason`` finds no reason against it (a CUDA
+        tensor without autograd, BatchNorm in eval mode), else the eager
+        layers."""
+        net = self.net
+        u = net[2](net[1](x))
+        depthwise, norm = net[4], net[5]
+        if eager_reason(u, depthwise.conv, depthwise.padding, norm) is None:
+            x = glu_conv_swish(u, depthwise.conv, norm)
+        else:
+            x = net[6](norm(depthwise(net[3](u))))
+        for layer in itertools.islice(net, 7, None):
             x = layer(x)
         return x
 
