@@ -15,12 +15,25 @@ line each (timings beside the card's name and power limit):
    (bf16 and fp32 each), of K4 and K5, of the add-and-norm kernels and of
    the conv-module kernel (no spills allowed), and their resident warps
    per SM;
-3. K1 (all three instances: bf16 and fp32 on tensor cores at d 16 and 32,
-   B'=3232 n=321 and n=1281 included, CUDA cores at d 4 and 8), K4 and K5
-   (each at n_fft 400 / hop 100 and 300 / 75) against their plain PyTorch
-   versions on the card, at the shapes of the serving path, with the
-   tolerance stated beside each; K1's row log-sum-exp against the plain
-   one;
+3. the serving path's kernels, from the table :data:`KERNELS`: K1 (all
+   three instances: bf16 and fp32 on tensor cores at d 16 and 32, B'=3232
+   n=321 and n=1281 included, CUDA cores at d 4 and 8, with its row
+   log-sum-exp), K4 and K5 (each at n_fft 400 / hop 100 and 300 / 75), the
+   conformers' add-and-LayerNorm kernel (``csrc/add_layer_norm.cu``: the
+   batch cell's 8 s bucket, both conformers' shapes, and the single cell's
+   6 s one, fp32 and bf16, y row-major and channels-major, with and without
+   skip, the sum r bit for bit) and the conv module's GLU, depthwise k31,
+   BatchNorm and swish kernel (``csrc/conv_module.cu``: the same shapes and
+   the single cell's freq conformer, fp32 and bf16, u channels-major and as
+   rows): each case against its plain PyTorch version on the card, with
+   the tolerance stated beside it, launching the kernel once (by the one
+   launch count, ``ops._native.launches``); then each kernel's rows (see
+   Timing): K1 at 2 s and 8 s at batch 32 and at the training shape, beside
+   the freq conformer's shape, K4 and K5 against their library calls in 5
+   alternating rounds (K4 no slower), the add-and-norm kernel at the time
+   conformer's shapes (host enqueue per call beside ``F.layer_norm``'s),
+   the conv-module kernel at the 8 s batch bucket (fp32, bf16) and the 6 s
+   batch-1 request (fp32);
 4. the serving path itself: ``Enhancer(fused_stft=True)`` on a full-width
    ``TSCNet(64, 201, fused_attention=True)`` (seeded random weights)
    enhances 12 utterances of 1-4 s at batch 8, in bf16 and fp32 (at
@@ -30,29 +43,17 @@ line each (timings beside the card's name and power limit):
    plain path; the launch count of every kernel of the path over that run
    must be > 0 (the CUDA-core K1 is on no main path: it takes head dims 4
    and 8 only);
-5. kernel path against plain path for ``enhance_batch`` on [32, 32000]
-   (per call, bf16 and fp32 at ``matmul_precision=None``; the fp32 kernel
-   path also at the default, TF32), K1's device time per batch from
-   ``torch.profiler`` (bf16 and fp32), and the kernel rows of K1 (each
-   instance), K4 and K5: device time, per-call time, plain time, bound and
-   library time (K1 at n = 1281 against SDPA over 8 batch chunks; K4 and
-   K5 against their library calls in 5 alternating rounds, medians and
-   per-round ratios printed); then the conformers' add-and-LayerNorm
-   kernel (``csrc/add_layer_norm.cu``, on the serving path since phase 4)
-   against its plain version at the batch cell's 8 s bucket (both
-   conformers' shapes) and the single cell's 6 s one, fp32 and bf16, y
-   row-major and channels-major, with and without skip, and its rows at
-   the time conformer's shapes (host enqueue per call beside
-   ``F.layer_norm``'s); then the conv module's GLU, depthwise k31,
-   BatchNorm and swish kernel (``csrc/conv_module.cu``, on the serving
-   path since phase 4) against its plain version at the same shapes and
-   the single cell's freq conformer, fp32 and bf16, u channels-major and
-   as rows, and its rows at the 8 s batch bucket (fp32, bf16) and the 6 s
-   batch-1 request (fp32) beside the module's eager layers;
-6. K2 (the Shaw-attention backward, through the autograd route whose
-   forward is K1; all three instances, B'=3232 n=321 included) and K6 (the
-   axis swap, forward and backward) against their plain versions at
-   training shapes;
+5. kernel path against plain path for ``enhance_batch`` on [32, 32000] in
+   bf16 (per call), and K1's device time in that batch from
+   ``torch.profiler`` (the fp32 batch is the benchmark's
+   ``cmgan-serve-batch`` cell, under ``sebench/``);
+6. the training path's kernels, from the same table: K2 (the
+   Shaw-attention backward, through the autograd route whose forward is
+   K1; all three instances, B'=3232 n=321 included) and K6 (the axis swap,
+   forward and backward: two launches) against their plain versions at
+   training shapes, then their rows: K2's tensor-core instances at B'=808
+   n=161 and B'=3232 n=321, its CUDA-core one at d=8, each against the
+   autograd backward of K1's SDPA yardstick, and K6 at 1 s and 2 s;
 7. the training path itself: ``make_fused_gan_train_step`` (generator
    step, host PESQ labels from the port's native engine, self-correcting
    discriminator step) on a full-width ``TSCNet(64, 201,
@@ -68,11 +69,8 @@ line each (timings beside the card's name and power limit):
 8. training timings (CUDA events, median after warm-up): generator step,
    host labels, discriminator step, whole step, kernel path against plain
    path, fp32 and bf16; the bf16 step's device time by kernel and its
-   busy share (``torch.profiler``); the kernel rows of K1 (both
-   tensor-core instances at B'=808 n=161), K2 (both tensor-core instances
-   at B'=808 n=161 and B'=3232 n=321, CUDA-core fp32 at d=8, each against
-   the autograd backward of the SDPA yardstick) and K6; peak device memory
-   of a step with and without rematerialization;
+   busy share (``torch.profiler``); peak device memory of a step with and
+   without rematerialization;
 9. the entry points a user runs, on a synthetic corpus in the VoiceBank
    layout (48 + 6 pairs of 1.5-4 s harmonic "speech" at 0-15 dB SNR, from
    the seed, in a temporary directory): ``cli.main_gan`` for one epoch of
@@ -219,15 +217,17 @@ its per-call time is CUDA events around one call, host included (median).
 A row says whether its working set fits the 50 MB L2 (then the repeated
 calls find their inputs there).  Bounds are the larger of the operations
 over the card's peak rate for their type and the bytes (each input read
-once, each output written once) over 3.35 TB/s; a 3xTF32 kernel's fp32
-products count three TF32 products each.  ``library_ms`` is one
+once, each output written once) over its bandwidth, the peaks of the
+benchmark's table (``sebench.reference.flops.peaks``); a 3xTF32 kernel's
+fp32 products count three TF32 products each.  ``library_ms`` is one
 PyTorch call computing the same function, timed here and used nowhere in
 the port.
 
-The line before the last is the kernels' JSON record (``launches``: the
-main paths' counts: phases 4 and 7, each zeroed before its path, phase
-9's CLI calls, each counted from before to after it, phase 10's
-kernel-route sampler runs and ``inference_diffuse`` calls, and phase 11's
+The line before the last is the kernels' JSON record, one entry for each
+kernel of :data:`KERNELS` (``launches``: the main paths' counts, read
+from the one launch count: phases 4 and 7, each zeroed before its path,
+phase 9's CLI calls, each counted from before to after it, phase 10's
+kernel-route sampler runs and ``inference_diffuse`` calls (K4 and K5), phase 11's
 ``cdiffuse_inference`` calls with the |STFT| conditioner, phase 12's int8
 batches, each zeroed before, and its two ranks' steps (each rank counts
 from zero in its own process) and two-replica ``Enhancer``, phase 13's
@@ -246,6 +246,7 @@ full fp32; phase 9's timed runs restore the flags a process starts with.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import statistics
@@ -253,10 +254,15 @@ import subprocess
 import sys
 import threading
 import time
+from collections.abc import Callable, Iterable
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from speech_enhancement_tpu_torch.ops import _native
 
 SEED = 0
 SR = 16000
@@ -308,13 +314,6 @@ def time_pair(kernel_fn, plain_fn, warmup: int = 2, reps: int = 10):
     return statistics.median(times[kernel_fn]), statistics.median(times[plain_fn])
 
 
-# peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W): bf16 on
-# tensor cores, fp32 on CUDA cores; TF32 495 TFLOP/s on tensor cores (the
-# same data sheet's dense TF32 rate), which a 3xTF32 kernel spends three
-# times per fp32-accurate product
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_TF32 = 495e12
-PEAK_BYTES = 3.35e12
 L2_BYTES = 50e6
 
 
@@ -351,13 +350,27 @@ def device_ms(fn, min_ms: float = 2.0, min_n: int = 20, max_n: int = 400) -> flo
         n = min(max_n, math.ceil(n * 1.2 * min_ms / max(total, 1e-3)))
 
 
-def bound(flops: float, nbytes: float, dtype=torch.bfloat16,
-          tf32x3: bool = False) -> tuple[float, str]:
-    """(least ms the card could take, "operations" or "bytes"); with
-    ``tf32x3`` the fp32 products run as three TF32 products each on tensor
-    cores (3 x flops at ``PEAK_TF32``)."""
-    t_ops = (3 * flops / PEAK_TF32 if tf32x3 else flops / PEAK_FLOPS[dtype]) * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+@functools.cache
+def card_peaks() -> dict:
+    """This card's peak rates, from the benchmark's table
+    (``sebench.reference.flops.peaks``)."""
+    from sebench.reference.flops import peaks
+
+    kind = torch.cuda.get_device_name(0)
+    table = peaks(kind)
+    if table is None:
+        raise RuntimeError(f"sebench/reference/flops.py has no peak rates for {kind}")
+    return table
+
+
+def bound(flops: float, nbytes: float, peak: str) -> tuple[float, str]:
+    """(least ms the card could take, "operations" or "bytes"): the
+    operations at the card's ``peak`` rate, ``"bf16"`` or ``"fp32"``
+    (CUDA cores), or ``"3xtf32"`` (three TF32 products on tensor cores per
+    fp32 product), and the bytes at its bandwidth."""
+    table = card_peaks()
+    rate = table["tf32"] / 3 if peak == "3xtf32" else table[peak]
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / table["bytes"] * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
@@ -385,38 +398,7 @@ def row(name: str, dev: float, call: float, plain: float, bnd: tuple, nbytes: fl
           f"library {lib_s}; {warm}{extra} ({card})", flush=True)
     return {"ms": dev, "device_ms": dev, "call_ms": call, "plain_ms": plain,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
-            "l2_warm": nbytes < L2_BYTES, "shape": shape,
-            "dtype": {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]}
-
-
-def attention_bound(b, n, dtype, h=4, d=16, tf32x3=False):
-    """K1: three n x n x d contractions per (sequence, head); q, k, v, out."""
-    elem = torch.finfo(dtype).bits // 8
-    nbytes = 4 * b * n * h * d * elem
-    return bound(6.0 * b * h * n * n * d, nbytes, dtype, tf32x3), nbytes
-
-
-def sdpa_yardstick(q, k, v, table, max_pos=512):
-    """(SDPA alone, bias build + SDPA): ``scaled_dot_product_attention``
-    with the Shaw bias ``[B', h, n, n]`` as its mask, built by the plain
-    gather and einsum; q, k, v as [B', h, n, d] views."""
-    import torch.nn.functional as F
-
-    from speech_enhancement_tpu_torch.ops.fused_attention import relative_index
-
-    d = q.shape[-1]
-    idx = relative_index(q.shape[1], max_pos, q.device)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def build_bias():
-        return torch.einsum("bhid,ijd->bhij", qt, table[idx]) * d ** -0.5
-
-    bias = build_bias()
-    alone = library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias))
-    del bias
-    torch.cuda.empty_cache()
-    chain = library(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=build_bias()))
-    return alone, chain
+            "l2_warm": nbytes < L2_BYTES, "shape": shape, "dtype": DTYPE_NAMES[dtype]}
 
 
 def attention_operands(b, n, dtype, gen, h=4, d=16, max_pos=512):
@@ -553,233 +535,803 @@ def sc_step_text(metrics: dict, gram, w, disc_grad_norm) -> str:
             f"|grad| {float(disc_grad_norm):.4g}")
 
 
+# --------------------------------------------------------------------------
+# phases 3 and 6: every hand-written kernel against its plain version, then
+# timed, from one table (KERNELS)
+
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+BOTH = (torch.float32, torch.bfloat16)
+
+
+class Case(NamedTuple):
+    """One check: ``run()`` calls the kernel and its plain twin on operands
+    from the seed and returns ``(error, within tolerance, text)``; the
+    kernel launches ``launches`` times in it, by the one count."""
+
+    what: str
+    dtype: torch.dtype
+    run: Callable[[], tuple[float, bool, str]]
+    launches: int = 1
+
+
+class Timed(NamedTuple):
+    """One row of the kernels line: the kernel call, its plain twin and the
+    library yardstick (one PyTorch call computing the same function, named
+    by ``library_is``), the bound's operations, bytes and peak kind
+    (:func:`bound`), and ``more(dev, lib)``, the row's own text and keys.
+    ``key`` nests the row under the kernel's first; ``in_turns`` times the
+    kernel and the library in alternating rounds (their medians make the
+    row); ``warmup`` and ``reps`` are :func:`time_pair`'s."""
+
+    label: str
+    shape: str
+    dtype: torch.dtype
+    kernel: Callable
+    plain: Callable
+    library: Callable
+    library_is: str
+    flops: float
+    nbytes: float
+    peak: str
+    key: str | None = None
+    more: Callable[[float, float | None], tuple[str, dict]] | None = None
+    in_turns: bool = False
+    warmup: int = 2
+    reps: int = 10
+
+
+class Kernel(NamedTuple):
+    """One kernel of the kernels line: its name (its key in the one launch
+    count), source under ``csrc/``, what it replaces, the phase that checks
+    and times it, its cases and rows (functions of the seeded generator),
+    and the main paths whose launches it reports (``by_path``: each path
+    apart, else their sum), with ``check_launches_from`` where no main
+    path reaches it."""
+
+    name: str
+    source: str
+    replaces: str
+    phase: int
+    cases: Callable[[torch.Generator], Iterable[Case]]
+    rows: Callable[[torch.Generator], Iterable[Timed]]
+    paths: tuple
+    by_path: bool = True
+    err_key: str = "max_abs_err"
+    err_by_dtype: bool = False
+    check_launches_from: str | None = None
+
+
+def kernel_phase(phase: int, card: str) -> dict:
+    """Phase ``phase``'s kernels of :data:`KERNELS`, each in turn: every
+    case against its plain twin (within its tolerance, launching the
+    kernel as often as the case says), then every row.  Each kernel draws
+    its operands from its own generator seeded with :data:`SEED`, so that
+    adding, removing or moving a kernel leaves the others' operands as
+    they are.  Returns, by kernel name, the largest error (by dtype for
+    ``err_by_dtype``), the row with its nested rows, and the launches of
+    the checks."""
+    out = {}
+    for k in KERNELS:
+        if k.phase != phase:
+            continue
+        print(f"[{phase} kernels] {k.name} ({k.source}) against its plain version, then "
+              f"timed; card {card}", flush=True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        errs, launched = {}, 0
+        for case in k.cases(gen):
+            before = _native.launches[k.name]
+            err, ok, text = case.run()
+            torch.cuda.synchronize()
+            n = _native.launches[k.name] - before
+            launched += n
+            name = DTYPE_NAMES[case.dtype]
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(ok and n == case.launches,
+                  f"{case.what}: {text}; {n} launches ({case.launches} expected)")
+            torch.cuda.empty_cache()
+        result: dict = {}
+        for spec in k.rows(gen):
+            r = measure(spec, card)
+            if spec.key is None:
+                result.update(r)
+            else:
+                result[spec.key] = r
+            del spec
+            torch.cuda.empty_cache()
+        out[k.name] = {"err": errs if k.err_by_dtype else max(errs.values()), "row": result,
+                       "check_launches": launched}
+    return out
+
+
+def measure(spec: Timed, card: str) -> dict:
+    """Time one row (see the module's docstring), print it and return its
+    numbers with the row's own keys."""
+    call, plain = time_pair(spec.kernel, spec.plain, spec.warmup, spec.reps)
+    extra, keys = f"; library: {spec.library_is}", {}
+    if spec.in_turns:
+        kern, libs, ratios = in_turns(spec.kernel, spec.library)
+        dev, lib = statistics.median(kern), statistics.median(libs)
+        extra += (f"; in turns, 5 rounds: kernel {', '.join(f'{m:.4f}' for m in kern)} ms, "
+                  f"library {', '.join(f'{m:.4f}' for m in libs)} ms, library/kernel "
+                  f"{', '.join(f'{r:.2f}' for r in ratios)}: the kernel "
+                  f"{'wins' if dev < lib else 'loses'}")
+        keys["in_turns"] = {"kernel_ms": kern, "library_ms": libs}
+    else:
+        dev, lib = device_ms(spec.kernel), library(spec.library)
+    if spec.more is not None:
+        text, own = spec.more(dev, lib)
+        extra += text
+        keys.update(own)
+    r = row(spec.label, dev, call, plain, bound(spec.flops, spec.nbytes, spec.peak),
+            spec.nbytes, lib, card, extra, shape=spec.shape, dtype=spec.dtype)
+    r.update(keys)
+    return r
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's microseconds to enqueue one call of ``fn``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return spent
+
+
+def ms_text(ms: float | None) -> str:
+    return "n/a" if ms is None else f"{ms:.4f} ms"
+
+
+# K1 and K2: fp32 differs in summation order only (rtol 1e-4, atol 1e-5,
+# as tests/test_pallas_attention.py); bf16 may flip a rounding of P or of
+# the output, one bf16 step of order-1 values
+ATTENTION_TOLS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+# K1's cases (B', n, max_pos_emb, head dim, dtypes): main-path shapes (2 s
+# at batch 32 is B' = 3232 n = 321, whole; 8 s a slice of B' = 3232 n =
+# 1281, clipping on), then short, full-tile and clipped edge cases
+# (max_pos_emb 8) and the other head dims; d 16 and 32 take the
+# tensor-core instances (bf16, and fp32 in 3xTF32), d 4 and 8 the CUDA-core
+# one (B' = 3232 n = 321 d = 8 fp32: its timed shape)
+K1_CASES = ((3232, 321, 512, 16, BOTH), (3232, 321, 512, 32, (torch.float32,)),
+            (8, 1281, 512, 16, BOTH), (5, 7, 512, 16, BOTH), (3, 100, 8, 16, BOTH),
+            (2, 64, 512, 16, BOTH), (8, 1281, 8, 16, BOTH), (6, 321, 512, 32, BOTH),
+            (4, 1281, 512, 32, BOTH), (5, 7, 512, 32, BOTH), (3, 100, 8, 32, BOTH),
+            (6, 70, 512, 4, BOTH), (6, 70, 512, 8, BOTH), (3232, 321, 512, 8, (torch.float32,)))
+# K2's: B' = 808 n = 161, the time conformer of batch 8 x 1 s; B' = 3232
+# n = 321, 2 s at batch 32; n = 1281, the length at which the JAX package
+# took K3; max_pos_emb 8: clipped table rows; then the other head dims K2
+# is built for, d = 32 at n = 161 and at n = 1281 unclipped (the
+# tensor-core pass A's largest band) included
+K2_CASES = ((808, 161, 512, 16, BOTH), (3232, 321, 512, 16, BOTH), (8, 1281, 512, 16, BOTH),
+            (3, 100, 8, 16, BOTH), (8, 1281, 8, 16, BOTH), (8, 1281, 8, 32, BOTH),
+            (6, 70, 512, 4, BOTH), (6, 70, 512, 8, BOTH), (6, 70, 512, 32, BOTH),
+            (3, 100, 8, 32, BOTH), (6, 321, 512, 32, BOTH), (808, 161, 512, 32, BOTH),
+            (8, 1281, 512, 32, BOTH))
+
+
+def attention_cases(check_fn, shapes, direction: str, instance: str, gen):
+    """The cases of ``shapes`` that take ``instance`` of K1 or K2."""
+    from speech_enhancement_tpu_torch.ops.fused_attention import kernel_instance
+
+    kernel = {"forward": "K1", "backward": "K2"}[direction]
+    for b, n, max_pos, d, dtypes in shapes:
+        for dtype in dtypes:
+            if kernel_instance(dtype, d, direction) == instance:
+                yield Case(f"{kernel} ({instance}) B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} "
+                           f"{dtype}", dtype, partial(check_fn, gen, b, n, max_pos, d,
+                                                                 dtype))
+
+
+def k1_check(gen, b, n, max_pos, d, dtype):
+    """K1 and its row log-sum-exp (what K2 reads: fp32 sums of the same
+    logits in another order, atol 1e-4 on values of order 10) against the
+    plain versions."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
+    got, lse = fa.fused_shaw_attention_fwd(q, k, v, table, max_pos, d ** -0.5, with_lse=True)
+    want, lse_want = attention_reference(q, k, v, table, max_pos)
+    lse_err = float((lse - lse_want).abs().max())
+    rtol, atol = ATTENTION_TOLS[dtype]
+    err, ok = within(got, want, rtol, atol)
+    return (err, ok and lse_err < 1e-4 and got.dtype == dtype and got.shape == want.shape,
+            f"max abs err {err:.3e} (rtol {rtol}, atol {atol}); lse max abs err "
+            f"{lse_err:.2e} (atol 1e-4)")
+
+
+def bwd_reference(q, k, v, table, g, max_pos, chunk=404):
+    """shaw_attention_bwd_reference over batch chunks (its fp32 logits of
+    B'=3232 n=321 would take 5 GB a tensor); the table in fp32 (its values
+    are the table's), so that the chunks' dtable sum in fp32."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    parts = [fa.shaw_attention_bwd_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
+                                             table.float(), g[i:i + chunk], max_pos)
+             for i in range(0, q.shape[0], chunk)]
+    return (*(torch.cat([p[j] for p in parts]) for j in range(3)),
+            sum(p[3] for p in parts).to(table.dtype))
+
+
+def k2_check(gen, b, n, max_pos, d, dtype):
+    """K2 through the autograd route whose forward is K1, against the plain
+    backward: fp32 dq, dk, dv within rtol 1e-4 + atol 1e-5 (summation
+    order), dtable relative RMS < 1e-5 (fp32 atomics); bf16 relative RMS <
+    1e-2 for each (roundings of P and dS*scale may flip)."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
+    g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+    got = torch.autograd.grad(fa.fused_shaw_attention(*leaves, max_pos), leaves, g)
+    del leaves
+    want = bwd_reference(q, k, v, table, g, max_pos)
+    report, worst = [], 0.0
+    ok = all(a.dtype == dtype and a.shape == w.shape for a, w in zip(got, want))
+    for name, a, w in zip(("dq", "dk", "dv", "dtable"), got, want):
+        err, rr = float((a.float() - w.float()).abs().max()), rel_rms_t(a, w)
+        worst = max(worst, err)
+        if dtype == torch.bfloat16:
+            ok = ok and rr < 1e-2
+        elif name == "dtable":
+            ok = ok and rr < 1e-5
+        else:
+            ok = ok and within(a, w, 1e-4, 1e-5)[1]
+        report.append(f"{name} {err:.2e}/{rr:.1e}")
+    return worst, ok, f"max abs err/relative RMS {', '.join(report)}"
+
+
+def shaw_bias(q, table, max_pos=512):
+    """The Shaw bias ``[B', h, n, n]`` of q ``[B', n, h, d]``, scaled, by
+    the plain gather and einsum: SDPA's mask in K1's yardstick."""
+    from speech_enhancement_tpu_torch.ops.fused_attention import relative_index
+
+    idx = relative_index(q.shape[1], max_pos, q.device)
+    return torch.einsum("bhid,ijd->bhij", q.transpose(1, 2), table[idx]) * q.shape[-1] ** -0.5
+
+
+def sdpa(q, k, v, bias):
+    """``scaled_dot_product_attention`` with ``bias`` as its mask, q, k, v
+    as ``[B', h, n, d]`` views."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                                          attn_mask=bias)
+
+
+def other_bound(flops, nbytes, peak):
+    """``more`` of an fp32 attention row: the bound of the other fp32 route
+    beside the row's (67 TFLOP/s on CUDA cores, or 3xTF32 on tensor
+    cores)."""
+    other = "fp32" if peak == "3xtf32" else "3xtf32"
+    name, key = {"fp32": ("67 TFLOP/s fp32", "bound_fp32_cuda_core_ms"),
+                 "3xtf32": ("3xTF32", "bound_3xtf32_ms")}[other]
+
+    def more(dev, lib):
+        ms, by = bound(flops, nbytes, other)
+        return f"; {name} bound {ms:.4f} ms ({by}; {100 * ms / dev:.1f}%)", {key: ms}
+    return more
+
+
+def lazy(build):
+    """A call of the function ``build()`` returns, built at the first call:
+    a yardstick's operands, not held while the plain version is timed."""
+    made = []
+
+    def call():
+        if not made:
+            made.append(build())
+        return made[0]()
+    return call
+
+
+def k1_row(gen, b, n, d, dtype, peak, label, key=None, beside="chain", chain_key=None):
+    """A K1 row: three n x n x d contractions per (sequence, head); q, k,
+    v, out; the library SDPA with the bias built beforehand.  Beside the
+    row: SDPA with the bias built in each call (``chain_key``: also as
+    that key), or (``beside="other"``) the other fp32 route's bound."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, table = attention_operands(b, n, dtype, gen, d=d)
+    flops, nbytes = 6.0 * b * 4 * n * n * d, 4 * q.numel() * q.element_size()
+    if beside == "other":
+        more = other_bound(flops, nbytes, peak)
+    else:
+        def more(dev, lib):
+            chain = library(lambda: sdpa(q, k, v, shaw_bias(q, table)))
+            return (f"; SDPA with the bias built in each call {ms_text(chain)}",
+                    {} if chain_key is None else {chain_key: chain})
+    return Timed(label, f"B'={b} n={n} h=4 d={d}", dtype,
+                 lambda: fa.fused_shaw_attention(q, k, v, table),
+                 lambda: fa.shaw_attention_reference(q, k, v, table),
+                 lazy(lambda: partial(sdpa, q, k, v, shaw_bias(q, table))),
+                 "SDPA with the Shaw bias as its mask, built beforehand", flops, nbytes, peak,
+                 key, more)
+
+
+def k1_rows(instance, gen):
+    """K1's rows: the tensor-core instance at 2 s and 8 s at batch 32 and at
+    the training shape, the fp32 one at 2 s and the training shape, the
+    CUDA-core one at d = 8, the head dim it keeps."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    if instance == "tensor_core":
+        yield k1_row(gen, 3232, 321, 16, torch.bfloat16, "bf16",
+                     "K1 tensor-core B'=3232 n=321 bf16 (2 s at batch 32)",
+                     chain_key="library_chain_ms")
+        # SDPA's bias would take 26 GB whole: its yardstick is 8 calls on a
+        # chunk of B' = 404 (a 5.3 GB bias, built beforehand)
+        q, k, v, table = attention_operands(3232, 1281, torch.bfloat16, gen)
+
+        def eight_chunks():
+            chunk = [t[:404] for t in (q, k, v)]
+            bias = shaw_bias(chunk[0], table)
+            return lambda: [sdpa(*chunk, bias) for _ in range(8)]
+        yield Timed("K1 tensor-core B'=3232 n=1281 bf16 (8 s at batch 32)",
+                    "B'=3232 n=1281 h=4 d=16", torch.bfloat16,
+                    lambda: fa.fused_shaw_attention(q, k, v, table),
+                    lambda: chunked(fa.shaw_attention_reference, 202, q, k, v, table),
+                    lazy(eight_chunks),
+                    "SDPA with the bias, 8 chunks of B'=404 (one chunk's, 8 times); plain "
+                    "in 16 chunks of 202", 6.0 * 3232 * 4 * 1281 * 1281 * 16, 4 * q.numel() * 2,
+                    "bf16", key="n1281", warmup=1, reps=2)
+        del q, k, v, table
+        q, k, v, table = attention_operands(10272, 101, torch.bfloat16, gen)
+        eager = device_ms(lambda: torch.softmax(
+            (torch.einsum("bihd,bjhd->bhij", q, k) + torch.einsum(
+                "bihd,ijd->bhij", q, table[fa.relative_index(101, 512, q.device)])) * 0.25,
+            dim=-1) @ v.transpose(1, 2))
+        print(f"    info K1 tensor-core at the freq conformer's B'=10272 n=101 bf16 (not "
+              f"routed through K1): device "
+              f"{device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)):.4f} ms; the eager "
+              f"bf16 attention there {eager:.4f} ms", flush=True)
+        del q, k, v, table
+        yield k1_row(gen, 808, 161, 16, torch.bfloat16, "bf16",
+                     "K1 tensor-core B'=808 n=161 bf16 (the training shape)", key="n161")
+    elif instance == "tensor_core_tf32":
+        yield k1_row(gen, 3232, 321, 16, torch.float32, "3xtf32",
+                     "K1 fp32 tensor-core (3xTF32) B'=3232 n=321 d=16 fp32", beside="other")
+        yield k1_row(gen, 808, 161, 16, torch.float32, "3xtf32",
+                     "K1 fp32 tensor-core (3xTF32) B'=808 n=161 fp32 (the training shape)",
+                     key="n161")
+    else:
+        yield k1_row(gen, 3232, 321, 8, torch.float32, "fp32", "K1 CUDA-core B'=3232 n=321 d=8 "
+                     "fp32", beside="other")
+
+
+def k2_rows(instance, gen):
+    """K2's rows: the tensor-core instances at the training shape and at 2 s
+    x batch 32, the CUDA-core one at d = 8, the head dim it keeps; the
+    library the autograd backward of the bias build and SDPA (K1's
+    yardstick).  Eight n x n x d contractions (s, the bias, dP, dV, dQ and
+    its bias term, dK, dtable); q, k, v, out, g, lse in, dq, dk, dv out."""
+    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+
+    dtype, d = {"tensor_core": (torch.bfloat16, 16), "tensor_core_tf32": (torch.float32, 16),
+                "cuda_core": (torch.float32, 8)}[instance]
+    peak = "3xtf32" if instance == "tensor_core_tf32" else DTYPE_NAMES[dtype]
+    shapes = ((None, 808, 161),) if instance == "cuda_core" else ((None, 808, 161),
+                                                                  ("n321", 3232, 321))
+    for key, b, n in shapes:
+        q, k, v, table = attention_operands(b, n, dtype, gen, d=d)
+        g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, d ** -0.5, with_lse=True)
+        flops = 16.0 * b * 4 * n * n * d
+        nbytes = (8 * q.numel() * q.element_size() + lse.numel() * 4
+                  + table.numel() * q.element_size())
+
+        def yardstick():
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
+            y = sdpa(*leaves[:3], shaw_bias(leaves[0], leaves[3])).transpose(1, 2)
+            return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
+        yield Timed(f"K2 {instance.replace('_', '-')} B'={b} n={n} d={d} {dtype}",
+                    f"B'={b} n={n} h=4 d={d}", dtype,
+                    lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g),
+                    lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
+                    lazy(yardstick), "autograd backward of the bias build and SDPA", flops,
+                    nbytes, peak, key,
+                    other_bound(flops, nbytes, peak) if dtype == torch.float32 else None,
+                    warmup=1, reps=6)
+        del q, k, v, table, g, out, lse
+
+
+# K4 and K5 at the serving path's geometry: what an FFT-based STFT needs,
+# a real FFT of 400 samples per frame (2.5 N log2 N flops) plus the window
+# and a few flops per bin for the compression; the bytes (20.6 MB: the
+# [32, 32000] audio and its [32, 321, 201] complex spectrum) bound it, not
+# these 0.12 GFLOP
+STFT_FLOPS = 32 * 321 * (2.5 * 400 * math.log2(400) + 400 + 8 * 201)
+STFT_BYTES = 32 * 32000 * 4 + 32 * 321 * 201 * 8
+
+
+def k4_cases(gen):
+    """K4: 3xTF32 sums (about fp32) in another order; compression amplifies
+    the error of near-empty bins (rtol 1e-4, atol 2e-4, as
+    tests/test_pallas_stft.py); the main path's geometry, then n_fft 300,
+    hop 75 (K padded 151 -> 152, a ragged last frame tile)."""
+    for shape, n_fft, hop in (((32, 32000), 400, 100), ((8, 24037), 300, 75)):
+        yield Case(f"K4 stft+compress {list(shape)} n_fft {n_fft} hop {hop} fp32", torch.float32,
+                   partial(k4_check, gen, shape, n_fft, hop))
+
+
+def k4_check(gen, shape, n_fft, hop):
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+
+    x = torch.randn(*shape, device="cuda", generator=gen)  # RMS 1, as normalized audio
+    spec, spec_ref = fs.fused_stft(x, n_fft, hop), fs.stft_reference(x, n_fft, hop)
+    err, ok = within(torch.view_as_real(spec), torch.view_as_real(spec_ref), 1e-4, 2e-4)
+    return (err, ok and spec.shape == spec_ref.shape == (shape[0], 1 + shape[1] // hop,
+                                                       n_fft // 2 + 1),
+            f"max abs err {err:.3e} (rtol 1e-4, atol 2e-4)")
+
+
+def k4_rows(gen):
+    """K4 against ``torch.stft`` and the compression in turns; the kernel
+    must be no slower (a check)."""
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+
+    x = torch.randn(32, 32000, device="cuda", generator=gen)
+    window = torch.hamming_window(400, device="cuda")
+
+    def no_slower(dev, lib):
+        check(dev <= lib, f"K4 device time {dev:.4f} ms no higher than torch.stft, then the "
+                          f"compression {lib:.4f} ms (medians in turns)")
+        return "", {}
+    yield Timed("K4 stft+compress [32, 32000] fp32", "[32, 32000] n_fft=400 hop=100",
+                torch.float32, lambda: fs.fused_stft(x), lambda: fs.stft_reference(x),
+                lambda: fs._gated_rescale(torch.stft(x, 400, 100, window=window,
+                                                     return_complex=True).transpose(1, 2), -0.35),
+                "torch.stft, then the compression", STFT_FLOPS, STFT_BYTES, "fp32",
+                more=no_slower, in_turns=True)
+
+
+def k5_cases(gen):
+    """K5: 3xTF32 sums (about fp32) of 201 products of order-1 values in
+    another order (rtol 1e-4, atol 1e-4); the main path's geometry, then
+    n_fft 300, hop 75 (K padded 151 -> 152, 151 of 208 n columns); 31963
+    and 23911 cut inside a hop block."""
+    for shape, n_fft, hop, lengths in (((32, 32000), 400, 100, (32000, 31963)),
+                                       ((8, 24037), 300, 75, (24000, 23911))):
+        for length in lengths:
+            yield Case(f"K5 uncompress+istft {[shape[0], 1 + shape[1] // hop, n_fft // 2 + 1]} "
+                       f"n_fft {n_fft} hop {hop} length {length} fp32", torch.float32,
+                       partial(k5_check, gen, shape, n_fft, hop, length))
+
+
+def k5_check(gen, shape, n_fft, hop, length):
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+
+    spec = fs.stft_reference(torch.randn(*shape, device="cuda", generator=gen), n_fft, hop)
+    wav = fs.fused_istft(spec, n_fft, hop, length=length)
+    wav_ref = fs.istft_reference(spec, n_fft, hop, length=length)
+    err, ok = within(wav, wav_ref, 1e-4, 1e-4)
+    return (err, ok and wav.shape == wav_ref.shape == (shape[0], length),
+            f"max abs err {err:.3e} (rtol 1e-4, atol 1e-4)")
+
+
+def k5_rows(gen):
+    from speech_enhancement_tpu_torch.ops import fused_stft as fs
+
+    spec = fs.stft_reference(torch.randn(32, 32000, device="cuda", generator=gen))
+    window = torch.hamming_window(400, device="cuda")
+    yield Timed("K5 uncompress+istft [32, 321, 201] fp32", "[32, 321, 201] n_fft=400 hop=100",
+                torch.float32, lambda: fs.fused_istft(spec, length=32000),
+                lambda: fs.istft_reference(spec, length=32000),
+                lambda: torch.istft(fs._gated_rescale(spec, (1.0 / 0.3 - 1.0) / 2.0).transpose(
+                    1, 2), 400, 100, window=window, length=32000),
+                "the uncompression, then torch.istft", STFT_FLOPS, STFT_BYTES, "fp32",
+                in_turns=True)
+
+
 # the conformers' add-and-norm at the serving cells' shapes ([rows, N, 64]):
 # the batch cell's 8 s bucket, 32 x 101 sequences of 1281 frames in the
 # time conformer and 32 x 1281 of 101 bins in the freq conformer, and the
 # single cell's 6 s bucket, 101 sequences of 961 frames
 NORM_SHAPES = {"8 s batch, time": (3232, 1281), "8 s batch, freq": (40992, 101),
                "6 s single, time": (101, 961)}
+# fp32: the sum r is one rounding of x + s y either way (bit for bit); n
+# differs in the statistics' summation order and rsqrt (values of order
+# 1-5); bf16: a rounding of n may flip, and skip is added after it (two
+# bf16 steps of order-1 values)
+NORM_TOLS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 
 
-def add_norm_phase(card: str, gen: torch.Generator) -> dict:
-    """Phase 5's add-and-LayerNorm kernel (``csrc/add_layer_norm.cu``)
-    against its plain version at the serving shapes of :data:`NORM_SHAPES`:
-    fp32 and bf16, y row-major and channels-major (the conv residual), with
-    and without skip, scale 0.5 and 1, and without y; then its rows at the
-    two time-conformer shapes in fp32 (what the cells serve): device, per
-    call, plain (the eager mul, add and LayerNorm), bound, library
-    (``torch.add`` with alpha and ``F.layer_norm``), the host's enqueue per
-    call against ``F.layer_norm``'s.  Returns the rows and errors."""
-    import torch.nn.functional as F
+def norm_operands(gen, b, n, dtype):
+    """A LayerNorm(64) with weights from ``gen`` and x ``[b, n, 64]``."""
     from torch import nn
+
+    from speech_enhancement_tpu_torch.models.conformer import LN_EPS
+
+    norm = nn.LayerNorm(64, eps=LN_EPS).to(device="cuda", dtype=dtype)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.5 * torch.randn(64, device="cuda", generator=gen))
+        norm.bias.copy_(0.5 * torch.randn(64, device="cuda", generator=gen))
+    return norm, torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+
+
+def norm_y(gen, b, n, dtype, layout):
+    """y row-major, channels-major (the conv residual) or None."""
+    if layout == "rows":
+        return torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+    if layout == "cols":
+        return torch.randn(b, 64, n, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+    return None
+
+
+def norm_cases(gen):
+    for label, (b, n) in NORM_SHAPES.items():
+        for dtype in BOTH:
+            for layout in ("rows", "cols", "none"):
+                yield Case(f"add_layer_norm {label} [{b}, {n}, 64] {DTYPE_NAMES[dtype]}, y "
+                           f"{layout}, scale 0.5 and 1, with and without skip", dtype,
+                           partial(norm_check, gen, b, n, dtype, layout), launches=4)
+
+
+def norm_check(gen, b, n, dtype, layout):
+    """Four calls (scale 0.5 and 1, with and without skip) against the plain
+    version; the sum r bit for bit."""
+    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
+
+    norm, x = norm_operands(gen, b, n, dtype)
+    skip = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
+    y = norm_y(gen, b, n, dtype, layout)
+    rtol, atol = NORM_TOLS[dtype]
+    worst, ok = 0.0, True
+    for scale, sk in ((0.5, None), (1.0, None), (0.5, skip), (1.0, skip)):
+        r, got = fnorm.add_layer_norm(x, y, scale, norm, sk)
+        want_r, want = fnorm.add_layer_norm_reference(x, y, scale, norm, sk)
+        err, good = within(got, want, rtol, atol)
+        worst = max(worst, err)
+        ok &= (good and got.dtype == dtype and got.is_contiguous() and torch.equal(r, want_r))
+    return worst, ok, f"max abs err {worst:.3e} (rtol {rtol}, atol {atol}), r bit for bit"
+
+
+def norm_rows(gen):
+    """The time conformer's shapes in fp32 (what the cells serve): x + 0.5 y
+    with r and n written (x, y read; r, n written); beside the row,
+    ``F.layer_norm`` alone, y channels-major and the host's enqueue per
+    call against ``F.layer_norm``'s."""
+    import torch.nn.functional as F
 
     from speech_enhancement_tpu_torch.models.conformer import LN_EPS
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
 
-    # fp32: the sum r is one rounding of x + s y either way (bit for bit);
-    # n differs in the statistics' summation order and rsqrt (values of
-    # order 1-5); bf16: a rounding of n may flip, and skip is added after
-    # it (two bf16 steps of order-1 values)
-    tols = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
-    errs = {"fp32": 0.0, "bf16": 0.0}
-    print("[5b add-and-norm] kernel vs plain, |kernel - plain| <= atol + rtol |plain|; "
-          "the sum r bit for bit", flush=True)
-
-    def operands(b, n, dtype):
-        norm = nn.LayerNorm(64, eps=LN_EPS).to(device="cuda", dtype=dtype)
-        with torch.no_grad():
-            norm.weight.copy_(1 + 0.5 * torch.randn(64, device="cuda", generator=gen))
-            norm.bias.copy_(0.5 * torch.randn(64, device="cuda", generator=gen))
-        x = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
-        return norm, x
-
-    for label, (b, n) in NORM_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            norm, x = operands(b, n, dtype)
-            skip = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
-            name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-            for layout in ("rows", "cols", "none"):
-                if layout == "rows":
-                    y = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
-                elif layout == "cols":
-                    y = torch.randn(b, 64, n, device="cuda", generator=gen).to(dtype)
-                    y = y.transpose(1, 2)
-                else:
-                    y = None
-                worst, ok = 0.0, True
-                for scale, sk in ((0.5, None), (1.0, None), (0.5, skip), (1.0, skip)):
-                    before = fnorm.launches
-                    r, got = fnorm.add_layer_norm(x, y, scale, norm, sk)
-                    want_r, want = fnorm.add_layer_norm_reference(x, y, scale, norm, sk)
-                    torch.cuda.synchronize()
-                    err, good = within(got, want, *tols[dtype])
-                    worst = max(worst, err)
-                    ok &= (good and fnorm.launches == before + 1 and got.dtype == dtype
-                           and got.is_contiguous() and torch.equal(r, want_r))
-                    del r, got, want_r, want
-                errs[name] = max(errs[name], worst)
-                check(ok, f"add_layer_norm {label} [{b}, {n}, 64] {name}, y "
-                          f"{layout}, scale 0.5 and 1, with and without skip: one launch "
-                          f"each, max abs err {worst:.3e} (rtol {tols[dtype][0]}, atol "
-                          f"{tols[dtype][1]}), r bit for bit")
-                del y
-            del norm, x, skip
-            torch.cuda.empty_cache()
-
-    rows = {}
-    for label in ("8 s batch, time", "6 s single, time"):
+    for key, label in ((None, "8 s batch, time"), ("single", "6 s single, time")):
         b, n = NORM_SHAPES[label]
-        norm, x = operands(b, n, torch.float32)
-        y = torch.randn(b, n, 64, device="cuda", generator=gen)
-        yc = torch.randn(b, 64, n, device="cuda", generator=gen).transpose(1, 2)
-        kernel_fn = lambda: fnorm.add_layer_norm(x, y, 0.5, norm)  # noqa: E731
-        plain_fn = lambda: fnorm.add_layer_norm_reference(x, y, 0.5, norm)  # noqa: E731
-        call, plain = time_pair(kernel_fn, plain_fn)
-        dev = device_ms(kernel_fn)
-        lib = library(lambda: F.layer_norm(torch.add(x, y, alpha=0.5), (64,), norm.weight,
-                                           norm.bias, LN_EPS))
-        alone = library(lambda: F.layer_norm(x, (64,), norm.weight, norm.bias, LN_EPS))
-        cols = device_ms(lambda: fnorm.add_layer_norm(x, yc, 1.0, norm))
-        host = {}
-        for who, fn in (("kernel", kernel_fn),
-                        ("layer_norm", lambda: F.layer_norm(x, (64,), norm.weight, norm.bias,
-                                                            LN_EPS))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                fn()
-            host[who] = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
-        nbytes = 4 * x.numel() * 4  # x, y read; r, n written
-        bnd = bound(0.0, nbytes)
-        r = row(f"add_layer_norm {label} [{b}, {n}, 64] fp32, x + 0.5 y, r and n written",
-                dev, call, plain, bnd, nbytes, lib, card,
-                f"; library: torch.add(alpha=0.5) and F.layer_norm; F.layer_norm alone "
-                f"{'n/a' if alone is None else f'{alone:.4f} ms'}; y channels-major (the conv "
-                f"residual) {cols:.4f} ms ({100 * bnd[0] / cols:.1f}% of bound); host enqueue "
-                f"per call: wrapper {host['kernel']:.1f} us, F.layer_norm {host['layer_norm']:.1f}"
-                f" us", shape=f"[{b}, {n}, 64]", dtype=torch.float32)
-        r.update(cols_device_ms=cols, layer_norm_ms=alone, host_us=host["kernel"],
-                 layer_norm_host_us=host["layer_norm"])
-        rows["batch" if label.startswith("8") else "single"] = r
+        norm, x = norm_operands(gen, b, n, torch.float32)
+        y = norm_y(gen, b, n, torch.float32, "rows")
+        yc = norm_y(gen, b, n, torch.float32, "cols")
+        nbytes = 4 * x.numel() * 4
+
+        def layer_norm():
+            return F.layer_norm(x, (64,), norm.weight, norm.bias, LN_EPS)
+
+        def more(dev, lib):
+            alone = library(layer_norm)
+            cols = device_ms(lambda: fnorm.add_layer_norm(x, yc, 1.0, norm))
+            host = host_us(lambda: fnorm.add_layer_norm(x, y, 0.5, norm))
+            host_ln = host_us(layer_norm)
+            share = 100 * bound(0.0, nbytes, "fp32")[0] / cols
+            return (f"; F.layer_norm alone {ms_text(alone)}; y channels-major (the conv "
+                    f"residual) {cols:.4f} ms ({share:.1f}% of bound); host enqueue per call: "
+                    f"wrapper {host:.1f} us, F.layer_norm {host_ln:.1f} us",
+                    {"cols_device_ms": cols, "layer_norm_ms": alone, "host_us": host,
+                     "layer_norm_host_us": host_ln})
+        yield Timed(f"add_layer_norm {label} [{b}, {n}, 64] fp32, x + 0.5 y, r and n written",
+                    f"[{b}, {n}, 64]", torch.float32,
+                    lambda: fnorm.add_layer_norm(x, y, 0.5, norm),
+                    lambda: fnorm.add_layer_norm_reference(x, y, 0.5, norm),
+                    lambda: F.layer_norm(torch.add(x, y, alpha=0.5), (64,), norm.weight,
+                                         norm.bias, LN_EPS),
+                    "torch.add(alpha=0.5) and F.layer_norm", 0.0, nbytes, "fp32", key, more)
         del norm, x, y, yc
-        torch.cuda.empty_cache()
-    return {"rows": rows, "errs": errs}
 
 
 # the conv module's middle at the serving cells' shapes ([B', 256, N] in):
 # the conformers' shapes of NORM_SHAPES and the single cell's 6 s freq one
 CONV_SHAPES = {**NORM_SHAPES, "6 s single, freq": (961, 101)}
+# relative RMS: fp32 differs in BatchNorm's arithmetic and the sum's order;
+# bf16 in a rounding of an intermediate that may flip
+CONV_TOLS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def conv_module_phase(card: str, gen: torch.Generator) -> dict:
-    """Phase 5's conv-module kernel (``csrc/conv_module.cu``: GLU, depthwise
-    k31, eval BatchNorm, swish) against its plain version at the serving
-    shapes of :data:`CONV_SHAPES`, fp32 and bf16, u channels-major and as
-    rows (a channels-last pointwise product); then its rows at the 8 s
-    batch bucket's time conformer (fp32 and bf16) and the 6 s batch-1
-    request's (fp32), u in the layout the model's pointwise conv hands
-    over: device, per call, plain (the eager op sequence), bound (u read
-    once, the output written once), library (the module's eager layers:
-    ``nn.GLU``, ``DepthWiseConv1d``, ``BatchNorm1d``, ``Swish``).  Returns
-    the rows and errors."""
+def conv_module(gen, dtype):
+    """A ConvModule(64) in eval mode, weights and statistics from ``gen``."""
     from speech_enhancement_tpu_torch.models.conformer import ConvModule
+
+    m = ConvModule(64).to("cuda").eval()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
+                    / math.sqrt(p[0].numel() if p.ndim > 1 else 4))
+        norm = m.net[5]
+        norm.weight.add_(1.0)
+        norm.running_mean.copy_(0.5 * torch.randn(128, device="cuda", generator=gen))
+        norm.running_var.copy_(torch.rand(128, device="cuda", generator=gen) * 1.5 + 0.5)
+    return m.to(dtype)
+
+
+def conv_u(gen, b, n, dtype, layout):
+    """u ``[b, 256, n]`` channels-major, or as rows (a channels-last
+    pointwise product)."""
+    if layout == "cols":
+        return torch.randn(b, 256, n, device="cuda", generator=gen).to(dtype)
+    return torch.randn(b, n, 256, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+
+
+def conv_cases(gen):
+    for label, (b, n) in CONV_SHAPES.items():
+        for dtype in BOTH:
+            for layout in ("cols", "rows"):
+                yield Case(f"glu_conv_swish {label} [{b}, 256, {n}] {DTYPE_NAMES[dtype]}, u "
+                           f"{layout}", dtype,
+                           partial(conv_check, gen, b, n, dtype, layout))
+
+
+@torch.no_grad()
+def conv_check(gen, b, n, dtype, layout):
     from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
 
-    # relative RMS: fp32 differs in BatchNorm's arithmetic and the sum's
-    # order; bf16 in a rounding of an intermediate that may flip
-    tols = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-    errs = {"fp32": 0.0, "bf16": 0.0}
-    print("[5c conv module] kernel vs plain (relative RMS)", flush=True)
+    m = conv_module(gen, dtype)
+    conv, norm = m.net[4].conv, m.net[5]
+    u = conv_u(gen, b, n, dtype, layout)
+    got = fcm.glu_conv_swish(u, conv, norm)
+    err = rel_rms_t(got, fcm.glu_conv_swish_reference(u, conv, norm))
+    return (err, err <= CONV_TOLS[dtype] and got.dtype == dtype and got.is_contiguous()
+            and got.shape == (b, 128, n), f"relative RMS {err:.3e} (tolerance {CONV_TOLS[dtype]})")
 
-    def module(dtype):
-        """A ConvModule(64) in eval mode, weights and statistics from ``gen``."""
-        m = ConvModule(64).to("cuda").eval()
-        with torch.no_grad():
-            for p in m.parameters():
-                p.copy_(torch.randn(p.shape, device="cuda", generator=gen)
-                        / math.sqrt(p[0].numel() if p.ndim > 1 else 4))
-            norm = m.net[5]
-            norm.weight.add_(1.0)
-            norm.running_mean.copy_(0.5 * torch.randn(128, device="cuda", generator=gen))
-            norm.running_var.copy_(torch.rand(128, device="cuda", generator=gen) * 1.5 + 0.5)
-        return m.to(dtype)
 
-    def model_u(m, b, n, dtype):
-        """The first pointwise conv's output, as the model makes it."""
-        x = torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)
-        with torch.no_grad():
-            return m.net[2](m.net[1](x))
+def conv_rows(gen):
+    """The 8 s batch bucket's time conformer (fp32, bf16) and the 6 s batch-1
+    request's (fp32), u in the layout the model's pointwise conv hands over
+    (u read once, the output written once); beside it the other layout."""
+    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
 
-    for label, (b, n) in CONV_SHAPES.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            m = module(dtype)
-            conv, norm = m.net[4].conv, m.net[5]
-            name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-            for layout in ("cols", "rows"):
-                if layout == "cols":
-                    u = torch.randn(b, 256, n, device="cuda", generator=gen).to(dtype)
-                else:
-                    u = torch.randn(b, n, 256, device="cuda", generator=gen).to(dtype)
-                    u = u.transpose(1, 2)
-                before = fcm.launches
-                with torch.no_grad():
-                    got = fcm.glu_conv_swish(u, conv, norm)
-                    want = fcm.glu_conv_swish_reference(u, conv, norm)
-                torch.cuda.synchronize()
-                err = rel_rms_t(got, want)
-                errs[name] = max(errs[name], err)
-                check(err <= tols[dtype] and fcm.launches == before + 1 and got.dtype == dtype
-                      and got.is_contiguous() and got.shape == (b, 128, n),
-                      f"glu_conv_swish {label} [{b}, 256, {n}] {name}, u {layout}: one launch, "
-                      f"relative RMS {err:.3e} (tolerance {tols[dtype]})")
-                del u, got, want
-            del m, conv, norm
-            torch.cuda.empty_cache()
-
-    rows = {}
-    for key, label, dtype in (("batch", "8 s batch, time", torch.float32),
+    for key, label, dtype in ((None, "8 s batch, time", torch.float32),
                               ("single", "6 s single, time", torch.float32),
-                              ("batch_bf16", "8 s batch, time", torch.bfloat16)):
+                              ("bf16", "8 s batch, time", torch.bfloat16)):
         b, n = CONV_SHAPES[label]
-        name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-        m = module(dtype)
+        m = conv_module(gen, dtype)
         net, conv, norm = m.net, m.net[4].conv, m.net[5]
-        u = model_u(m, b, n, dtype)
-        layout = {fcm.COLS: "channels-major", fcm.ROWS: "rows"}.get(fcm.u_layout(u), "other")
-        if fcm.u_layout(u) == fcm.ROWS:  # the other layout, timed beside it
-            other = torch.randn(b, 256, n, device="cuda", generator=gen).to(dtype)
-        else:
-            other = torch.randn(b, n, 256, device="cuda", generator=gen).to(dtype).transpose(1, 2)
-        with torch.no_grad():
-            kernel_fn = lambda: fcm.glu_conv_swish(u, conv, norm)  # noqa: E731
-            plain_fn = lambda: fcm.glu_conv_swish_reference(u, conv, norm)  # noqa: E731
-            call, plain = time_pair(kernel_fn, plain_fn)
-            dev = device_ms(kernel_fn)
-            lib = library(lambda: net[6](net[5](net[4](net[3](u)))))
-            dev_other = device_ms(lambda: fcm.glu_conv_swish(other, conv, norm))
+        with torch.no_grad():  # the first pointwise conv's output, as the model makes it
+            u = net[2](net[1](torch.randn(b, n, 64, device="cuda", generator=gen).to(dtype)))
+        names = {fcm.COLS: "channels-major", fcm.ROWS: "rows"}
+        layout = names.get(fcm.u_layout(u), "other")
+        other = conv_u(gen, b, n, dtype, "cols" if fcm.u_layout(u) == fcm.ROWS else "rows")
         nbytes = u.numel() * u.element_size() * 3 / 2
-        bnd = bound(0.0, nbytes)
-        r = row(f"glu_conv_swish {label} [{b}, 256, {n}] {name}, u {layout}", dev, call, plain,
-                bnd, nbytes, lib, card,
-                f"; library: the module's eager GLU, pad, depthwise conv, BatchNorm, swish; u "
-                f"{'channels-major' if layout == 'rows' else 'rows'} {dev_other:.4f} ms "
-                f"({100 * bnd[0] / dev_other:.1f}% of bound)",
-                shape=f"[{b}, 256, {n}]", dtype=dtype)
-        r.update(u_layout=layout, other_layout_device_ms=dev_other)
-        rows[key] = r
+
+        def more(dev, lib):
+            dev_other = device_ms(torch.no_grad()(lambda: fcm.glu_conv_swish(other, conv, norm)))
+            share = 100 * bound(0.0, nbytes, "fp32")[0] / dev_other
+            return (f"; u {names[fcm.u_layout(other)]} {dev_other:.4f} ms ({share:.1f}% of "
+                    f"bound)", {"u_layout": layout, "other_layout_device_ms": dev_other})
+        yield Timed(f"glu_conv_swish {label} [{b}, 256, {n}] {DTYPE_NAMES[dtype]}, u {layout}",
+                    f"[{b}, 256, {n}]", dtype,
+                    torch.no_grad()(lambda: fcm.glu_conv_swish(u, conv, norm)),
+                    torch.no_grad()(lambda: fcm.glu_conv_swish_reference(u, conv, norm)),
+                    torch.no_grad()(lambda: net[6](net[5](net[4](net[3](u))))),
+                    "the module's eager GLU, pad, depthwise conv, BatchNorm, swish", 0.0,
+                    nbytes, "fp32", key, more)
         del m, net, conv, norm, u, other
-        torch.cuda.empty_cache()
-    return {"rows": rows, "errs": errs}
 
 
-def training_phases(card: str, gen: torch.Generator) -> dict:
-    """Phases 6-8: K2 and K6 against their plain versions, the training
-    path through ``make_fused_gan_train_step``, and its timings.  Returns
-    the launch counts (K1's too), errors and kernel rows of K2 and K6."""
-    from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
-    from speech_enhancement_tpu_torch.ops import fused_attention as fa
+# K6 at the time conformer's [B, F, T, C] of 1 s and 2 s
+SWAP_SHAPES = ((8, 101, 161, 64), (32, 101, 321, 64))
+
+
+def swap_cases(gen):
+    for shape in SWAP_SHAPES:
+        for dtype in BOTH:
+            yield Case(f"K6 swap {list(shape)} {dtype} forward and backward", dtype,
+                       partial(swap_check, gen, shape, dtype), launches=2)
+
+
+def swap_check(gen, shape, dtype):
+    """K6 forward and backward, exact."""
     from speech_enhancement_tpu_torch.ops import fused_relayout as fr
+
+    x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
+    y = fr.swap_seq_axes(x)
+    gy = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    y = y.detach()
+    want_y, want_gx = x.detach().transpose(1, 2).contiguous(), gy.transpose(1, 2)
+    err = max(float((y - want_y).abs().max()), float((gx - want_gx).abs().max()))
+    return (err, torch.equal(y, want_y) and torch.equal(gx, want_gx) and y.is_contiguous(),
+            f"exact (max abs err {err})")
+
+
+def swap_rows(gen):
+    """bf16, x read and written once; beside the row the host's enqueue per
+    call against ``transpose().contiguous()``'s."""
+    from speech_enhancement_tpu_torch.ops import fused_relayout as fr
+
+    for key, shape, aim in ((None, SWAP_SHAPES[0], "no slower than transpose().contiguous()"),
+                            ("serving", SWAP_SHAPES[1], ">= 65% of the bound")):
+        x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+        def more(dev, lib, aim=aim):
+            host = host_us(lambda: fr.swap_seq_axes(x))
+            return (f"; host enqueue per call: wrapper {host:.1f} us, transpose().contiguous() "
+                    f"{host_us(lambda: fr.swap_seq_axes_reference(x)):.1f} us; aim: {aim}",
+                    {"host_us": host})
+        yield Timed(f"K6 {list(shape)} bf16", f"[B, F, T, C]={list(shape)}", torch.bfloat16,
+                    lambda: fr.swap_seq_axes(x), lambda: fr.swap_seq_axes_reference(x),
+                    lambda: x.transpose(1, 2).contiguous(), "transpose().contiguous()", 0.0,
+                    2 * x.numel() * 2, "bf16", key, more, reps=20)
+        del x
+
+
+# the main paths whose launches the kernels line reports (each path's
+# phase counts its own)
+SERVED = ("serving (phase 4)", "training (phase 7)", "entry points (phase 9)")
+LATER = ("int8 serving (phase 12)", "data parallel (phase 12)", "quality scripts (phase 13)",
+         "long-run scripts (phase 14)")
+DIFFUSION = ("diffusion (phase 10)",)
+NO_MAIN_PATH = ("serving (phase 4)", "training (phase 7)")
+K1_SOURCE = "speech_enhancement_tpu/ops/pallas_attention.py:201"
+K2_SOURCE = "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616"
+
+KERNELS = (
+    Kernel("shaw_attention_fwd_tensor_core", "shaw_attention_mma.cu", K1_SOURCE, 3,
+           partial(attention_cases, k1_check, K1_CASES, "forward", "tensor_core"),
+           partial(k1_rows, "tensor_core"), SERVED + LATER),
+    Kernel("shaw_attention_fwd_tf32", "shaw_attention_tf32.cu", K1_SOURCE, 3,
+           partial(attention_cases, k1_check, K1_CASES, "forward", "tensor_core_tf32"),
+           partial(k1_rows, "tensor_core_tf32"), SERVED + LATER),
+    Kernel("shaw_attention_fwd_cuda_core", "shaw_attention.cu", K1_SOURCE, 3,
+           partial(attention_cases, k1_check, K1_CASES, "forward", "cuda_core"),
+           partial(k1_rows, "cuda_core"), NO_MAIN_PATH, by_path=False,
+           check_launches_from="phase-3 checks at head dims 4 and 8: no main path reaches it"),
+    Kernel("shaw_attention_bwd_tensor_core", "shaw_attention_bwd_mma.cu", K2_SOURCE, 6,
+           partial(attention_cases, k2_check, K2_CASES, "backward", "tensor_core"),
+           partial(k2_rows, "tensor_core"), SERVED + LATER),
+    Kernel("shaw_attention_bwd_tf32", "shaw_attention_bwd_tf32.cu", K2_SOURCE, 6,
+           partial(attention_cases, k2_check, K2_CASES, "backward", "tensor_core_tf32"),
+           partial(k2_rows, "tensor_core_tf32"), SERVED + LATER),
+    Kernel("shaw_attention_bwd_cuda_core", "shaw_attention_bwd.cu", K2_SOURCE, 6,
+           partial(attention_cases, k2_check, K2_CASES, "backward", "cuda_core"),
+           partial(k2_rows, "cuda_core"), NO_MAIN_PATH, by_path=False,
+           check_launches_from="phase-6 checks at head dims 4 and 8: no main path reaches it"),
+    Kernel("stft_compress", "stft.cu", "speech_enhancement_tpu/ops/pallas_stft.py:74", 3,
+           k4_cases, k4_rows, SERVED + DIFFUSION + ("cdiffuse (phase 11)",) + LATER),
+    Kernel("uncompress_istft", "stft.cu", "speech_enhancement_tpu/ops/pallas_stft.py:157", 3,
+           k5_cases, k5_rows, SERVED + DIFFUSION + LATER),
+    Kernel("add_layer_norm", "add_layer_norm.cu",
+           "no TPU kernel: aten's LayerNorm and the adds around it", 3, norm_cases, norm_rows,
+           SERVED + DIFFUSION + LATER, err_by_dtype=True),
+    Kernel("glu_conv_swish", "conv_module.cu", "no TPU kernel: the conv module's eager GLU, "
+           "pad, depthwise conv, BatchNorm and swish", 3, conv_cases, conv_rows,
+           SERVED + DIFFUSION + LATER, err_key="max_rel_rms", err_by_dtype=True),
+    Kernel("swap_seq_axes", "relayout.cu", "speech_enhancement_tpu/ops/pallas_relayout.py:48", 6,
+           swap_cases, swap_rows, ("fused_relayout step (phase 7)",), by_path=False),
+)
+
+
+def kernels_line(checked: dict, paths: dict) -> list:
+    """The kernels line: each kernel of :data:`KERNELS` with its launches on
+    the main paths (``paths``: each path's counts by kernel name), its
+    largest error and its rows (``checked``: :func:`kernel_phase`'s)."""
+    out = []
+    for k in KERNELS:
+        got = checked[k.name]
+        entry = {"name": k.name, "route": "cuda",
+                 "source": f"speech_enhancement_tpu_torch/csrc/{k.source}",
+                 "replaces": k.replaces, "launches": sum(paths[p][k.name] for p in k.paths)}
+        if k.by_path:
+            entry["launches_by_path"] = {p: paths[p][k.name] for p in k.paths}
+        if k.check_launches_from:
+            entry.update(check_launches=got["check_launches"],
+                         check_launches_from=k.check_launches_from)
+        out.append({**entry, k.err_key: got["err"], **got["row"]})
+    return out
+
+
+def training_phases(card: str) -> dict:
+    """Phases 7-8: the training path through ``make_fused_gan_train_step``,
+    and its timings.  Returns the path's launches, and those of the step
+    with ``fused_relayout=True`` (K6's path)."""
+    from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
     from speech_enhancement_tpu_torch.train import (
         create_gan_state,
         gan_discriminator_step,
@@ -788,92 +1340,6 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         make_fused_gan_train_step,
     )
     from speech_enhancement_tpu_torch.train.gan import host_pesq_labels
-
-    errs = {"K2": 0.0, "K2mma": 0.0, "K2tf32": 0.0, "K6": 0.0}
-    rows = {}
-
-    # 6. K2 and K6 against their plain versions, at training shapes
-    print("[6 training kernels vs plain] K2 fp32: dq, dk, dv within rtol 1e-4 + atol 1e-5 "
-          "(summation order), dtable relative RMS < 1e-5 (fp32 atomics); bf16: relative "
-          "RMS < 1e-2 for each (roundings of P and dS*scale may flip); d 16 and 32 take "
-          "the tensor-core instances (bf16, and fp32 in 3xTF32), d 4 and 8 the CUDA-core "
-          "one; K6 exact", flush=True)
-    both = (torch.float32, torch.bfloat16)
-    names = ("dq", "dk", "dv", "dtable")
-
-    def bwd_reference(q, k, v, table, g, max_pos, chunk=404):
-        """shaw_attention_bwd_reference over batch chunks (its fp32 logits
-        of B'=3232 n=321 would take 5 GB a tensor); the table in fp32 (its
-        values are the table's), so that the chunks' dtable sum in fp32."""
-        parts = [fa.shaw_attention_bwd_reference(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk],
-                                                 table.float(), g[i:i + chunk], max_pos)
-                 for i in range(0, q.shape[0], chunk)]
-        return (*(torch.cat([p[j] for p in parts]) for j in range(3)),
-                sum(p[3] for p in parts).to(table.dtype))
-
-    # B' = 808 n = 161: the time conformer of batch 8 x 1 s; B' = 3232
-    # n = 321: 2 s at batch 32; n = 1281: the length at which the
-    # JAX package took K3; max_pos_emb 8: clipped table rows; then the
-    # other head dims K2 is built for, d=32 at n = 161 and at n = 1281
-    # unclipped (the tensor-core pass A's largest band) included
-    cuda_core_bwd_launches = fa.bwd_launches
-    for b, n, max_pos, d, dtypes in ((808, 161, 512, 16, both),
-                                     (3232, 321, 512, 16, both),
-                                     (8, 1281, 512, 16, both), (3, 100, 8, 16, both),
-                                     (8, 1281, 8, 16, both), (8, 1281, 8, 32, both),
-                                     (6, 70, 512, 4, both), (6, 70, 512, 8, both),
-                                     (6, 70, 512, 32, both), (3, 100, 8, 32, both),
-                                     (6, 321, 512, 32, both), (808, 161, 512, 32, both),
-                                     (8, 1281, 512, 32, both)):
-        for dtype in dtypes:
-            q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
-            g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
-            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
-            out = fa.fused_shaw_attention(*leaves, max_pos)
-            instance = fa.kernel_instance(dtype, d, "backward")
-            counter = {"tensor_core": "bwd_mma_launches", "tensor_core_tf32": "bwd_tf32_launches",
-                       "cuda_core": "bwd_launches"}[instance]
-            launched = getattr(fa, counter)
-            got = torch.autograd.grad(out, leaves, g)
-            launched = getattr(fa, counter) - launched
-            del leaves, out
-            want = bwd_reference(q, k, v, table, g, max_pos)
-            torch.cuda.synchronize()
-            key = {"tensor_core": "K2mma", "tensor_core_tf32": "K2tf32", "cuda_core": "K2"}[instance]
-            report = []
-            ok = all(a.dtype == dtype and a.shape == w.shape for a, w in zip(got, want))
-            for name, a, w in zip(names, got, want):
-                err = float((a.float() - w.float()).abs().max())
-                errs[key] = max(errs[key], err)
-                rr = rel_rms_t(a, w)
-                if dtype == torch.bfloat16:
-                    ok = ok and rr < 1e-2
-                elif name == "dtable":
-                    ok = ok and rr < 1e-5
-                else:
-                    ok = ok and within(a, w, 1e-4, 1e-5)[1]
-                report.append(f"{name} {err:.2e}/{rr:.1e}")
-            check(ok and launched == 1,
-                  f"K2 ({instance}) B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: max "
-                  f"abs err/relative RMS {', '.join(report)}")
-            del q, k, v, table, g, got, want
-        torch.cuda.empty_cache()
-    cuda_core_bwd_launches = fa.bwd_launches - cuda_core_bwd_launches
-    for shape in ((8, 101, 161, 64), (32, 101, 321, 64)):  # [B, F, T, C] of 1 s and 2 s
-        for dtype in both:
-            x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
-            y = fr.swap_seq_axes(x)
-            gy = torch.randn(y.shape, device="cuda", generator=gen).to(dtype)
-            (gx,) = torch.autograd.grad(y, x, gy)
-            y = y.detach()
-            want_y, want_gx = x.detach().transpose(1, 2).contiguous(), gy.transpose(1, 2)
-            torch.cuda.synchronize()
-            err = max(float((y - want_y).abs().max()), float((gx - want_gx).abs().max()))
-            errs["K6"] = max(errs["K6"], err)
-            check(torch.equal(y, want_y) and torch.equal(gx, want_gx) and y.is_contiguous(),
-                  f"K6 swap {list(shape)} {dtype} forward and backward: exact (max abs err {err})")
-    del x, y, gy, gx, want_y, want_gx
-    torch.cuda.empty_cache()
 
     # 7. the training path, through the entry point a user calls
     def new_state(fused_attention=True, fused_relayout=False, remat=True):
@@ -888,23 +1354,21 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     batches = make_batches(rng, 4)
     steps = {dtype: make_fused_gan_train_step(criterion=l2_loss, arch="scp",
                                               compute_dtype=None if dtype == torch.float32
-                                              else dtype) for dtype in both}
-    states = {dtype: new_state() for dtype in both}
+                                              else dtype) for dtype in BOTH}
+    states = {dtype: new_state() for dtype in BOTH}
     # each step's gradient norms (the generator's by leaf), losses and
     # self-correcting weights, so that a loss that does not fall shows
     # which step, leaf and weight took the large update
-    seen = {dtype: read_grads(states[dtype].gen_opt, states[dtype].gen) for dtype in both}
-    disc_seen = {dtype: read_grads(states[dtype].disc_opt, states[dtype].disc) for dtype in both}
-    leaf_norms = {dtype: [] for dtype in both}
-    disc_norms = {dtype: [] for dtype in both}
-    weights = {dtype: [] for dtype in both}
-    fa.launches = fa.mma_launches = fa.tf32_launches = 0
-    fa.bwd_launches = fa.bwd_mma_launches = fa.bwd_tf32_launches = 0
-    fr.launches = 0
+    seen = {dtype: read_grads(states[dtype].gen_opt, states[dtype].gen) for dtype in BOTH}
+    disc_seen = {dtype: read_grads(states[dtype].disc_opt, states[dtype].disc) for dtype in BOTH}
+    leaf_norms = {dtype: [] for dtype in BOTH}
+    disc_norms = {dtype: [] for dtype in BOTH}
+    weights = {dtype: [] for dtype in BOTH}
+    _native.clear_launches()
     t0 = time.perf_counter()
-    history = {dtype: [] for dtype in both}
+    history = {dtype: [] for dtype in BOTH}
     with sc_weight_trace() as sc:
-        for dtype in both:
+        for dtype in BOTH:
             for i, (clean, noisy) in enumerate((batches[0],) * 3 + (batches[1],)):
                 # steps 0-2 on one repeated batch
                 history[dtype].append(steps[dtype](states[dtype], clean, noisy, i))
@@ -914,17 +1378,15 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                 weights[dtype].append(sc[-1])
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
-                "K2 tensor-core": fa.bwd_mma_launches, "K2 fp32 tensor-core": fa.bwd_tf32_launches}
-    cuda_core_fwd_launches, cuda_core_bwd_train = fa.launches, fa.bwd_launches
+    launches = kernel_counts()
     print(f"[7 training path] make_fused_gan_train_step, TSCNet(64, 201, fused_attention=True) "
           f"+ Discriminator(16), scp, batch 8 x 16000, 4 steps each fp32 and bf16 in "
-          f"{train_s:.2f} s (first calls included); launches {launches}; CUDA-core K1 "
-          f"{cuda_core_fwd_launches}, CUDA-core K2 {cuda_core_bwd_train} (no training path has "
+          f"{train_s:.2f} s (first calls included); launches {launches} (no training path has "
           f"d 4 or 8)", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched {n} times by the training path")
-    for dtype in both:
+    for name in ("shaw_attention_fwd_tensor_core", "shaw_attention_fwd_tf32",
+                 "shaw_attention_bwd_tensor_core", "shaw_attention_bwd_tf32"):
+        check(launches[name] > 0, f"{name} launched {launches[name]} times by the training path")
+    for dtype in BOTH:
         values = [{k: float(v) for k, v in m.items()} for m in history[dtype]]
         check(all(np.isfinite(x) for m in values for x in m.values()),
               f"{dtype} training: every loss finite")
@@ -952,14 +1414,15 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
                                                    ("kernel+K6", True, True)):
         state = new_state(fused_attention, fused_relayout)
         grads = read_grads(state.gen_opt, state.gen)
-        fr.launches = 0
+        before = kernel_counts()
         metrics = steps[torch.float32](state, clean, noisy, 100)
         torch.cuda.synchronize()
-        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads, fr.launches)
+        runs[label] = ({k: float(v) for k, v in metrics.items()}, grads, counts_since(before))
         del state
-    k6_launches = runs["kernel+K6"][2]
-    check(k6_launches > 0 and runs["kernel"][2] == 0,
+    k6_launches = runs["kernel+K6"][2]["swap_seq_axes"]
+    check(k6_launches > 0 and runs["kernel"][2]["swap_seq_axes"] == 0,
           f"K6 launched {k6_launches} times by the fused_relayout=True step (0 without)")
+    relayout_launches = runs["kernel+K6"][2]
     plain_metrics, plain_grads, _ = runs["plain"]
     for label in ("kernel", "kernel+K6"):
         metrics, grads, _ = runs[label]
@@ -1007,7 +1470,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
         return [statistics.median(t[j] for t in times) for j in range(4)]
 
     whole_step = {}  # (dtype, path): median whole-step ms
-    for dtype in both:
+    for dtype in BOTH:
         compute_dtype = None if dtype == torch.float32 else dtype
         order = (("kernel", True), ("plain", False), ("plain", False), ("kernel", True))
         collected = {"kernel": [], "plain": []}
@@ -1052,108 +1515,6 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
     del state, prof
     torch.cuda.empty_cache()
 
-    # K1 at the training shape: both tensor-core instances (32 launches a
-    # run), against SDPA with the bias as mask, as phase 5 at n = 321
-    for dtype, key, label in ((torch.bfloat16, "K1mma", "K1 tensor-core"),
-                              (torch.float32, "K1tf32", "K1 fp32 tensor-core (3xTF32)")):
-        q, k, v, table = attention_operands(808, 161, dtype, gen)
-        call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                                lambda: fa.shaw_attention_reference(q, k, v, table))
-        bnd, nbytes = attention_bound(808, 161, dtype, tf32x3=dtype == torch.float32)
-        dev = device_ms(lambda: fa.fused_shaw_attention(q, k, v, table))
-        alone, chain = sdpa_yardstick(q, k, v, table)
-        rows[key + "_n161"] = row(
-            f"{label} B'=808 n=161 {dtype} (the training shape)", dev, call, plain, bnd, nbytes,
-            alone, card, f"; SDPA with the bias built beforehand "
-            f"{'n/a' if chain is None else f'{chain:.4f} ms'}",
-            shape="B'=808 n=161 h=4 d=16", dtype=dtype)
-        del q, k, v, table
-        torch.cuda.empty_cache()
-
-    # K2: both tensor-core instances at the training shape and at 2 s x
-    # batch 32; the CUDA-core instance at d = 8, the head dim it keeps
-    for b, n, dtype, d in ((808, 161, torch.bfloat16, 16), (3232, 321, torch.bfloat16, 16),
-                           (808, 161, torch.float32, 16), (3232, 321, torch.float32, 16),
-                           (808, 161, torch.float32, 8)):
-        q, k, v, table = attention_operands(b, n, dtype, gen, d=d)
-        g = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
-        scale = d ** -0.5
-        out, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 512, scale, with_lse=True)
-        kernel = lambda: fa.fused_shaw_attention_bwd(q, k, v, table, out, lse, g)  # noqa: E731
-        call, plain = time_pair(kernel, lambda: fa.shaw_attention_bwd_reference(q, k, v, table, g),
-                                warmup=1, reps=6)
-        # eight n x n x d contractions (s, the bias, dP, dV, dQ and its
-        # bias term, dK, dtable); q, k, v, out, g, lse in, dq, dk, dv out
-        elem = torch.finfo(dtype).bits // 8
-        nbytes = 8 * q.numel() * elem + lse.numel() * 4 + table.numel() * elem
-        flops = 16.0 * b * 4 * n * n * d
-        instance = fa.kernel_instance(dtype, d, "backward")
-        # fp32: the 3xTF32 bound for the tensor-core instance, beside it the
-        # 67 TFLOP/s CUDA-core one (and the other way round for CUDA cores)
-        tf32_bnd = bound(flops, nbytes, dtype, tf32x3=True)
-        fp32_bnd = bound(flops, nbytes, dtype)
-        bnd = tf32_bnd if instance == "tensor_core_tf32" else fp32_bnd
-        dev = device_ms(kernel)
-        # the yardstick's backward: autograd through the Shaw-bias build and
-        # scaled_dot_product_attention (K1's library call)
-        import torch.nn.functional as F
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, table)]
-        qt, kt, vt = (t.transpose(1, 2) for t in leaves[:3])
-        bias = torch.einsum("bhid,ijd->bhij", qt,
-                            leaves[3][fa.relative_index(n, 512, q.device)]) * scale
-        y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias).transpose(1, 2)
-        lib = library(lambda: torch.autograd.grad(y, leaves, g, retain_graph=True))
-        del leaves, qt, kt, vt, bias, y
-        if dtype == torch.float32:
-            other, other_name = ((fp32_bnd, "67 TFLOP/s fp32") if instance == "tensor_core_tf32"
-                                 else (tf32_bnd, "3xTF32"))
-            extra = (f"; {other_name} bound {other[0]:.4f} ms ({other[1]}; "
-                     f"{100 * other[0] / dev:.1f}%)")
-        else:
-            extra = ""
-        r = row(f"K2 {instance.replace('_', '-')} B'={b} n={n} d={d} {dtype}", dev, call, plain,
-                bnd, nbytes, lib, card, "; library: autograd backward of the bias build and SDPA"
-                + extra, shape=f"B'={b} n={n} h=4 d={d}", dtype=dtype)
-        if dtype == torch.float32:
-            r["bound_3xtf32_ms" if instance == "cuda_core" else "bound_fp32_cuda_core_ms"] = \
-                other[0]
-        key = {"tensor_core": "K2mma", "tensor_core_tf32": "K2tf32", "cuda_core": "K2"}[instance]
-        if n == 321:
-            rows[key]["n321"] = r
-        else:
-            rows[key] = r
-        del q, k, v, table, g, out, lse
-        torch.cuda.empty_cache()
-    for shape, target in (((8, 101, 161, 64), "no slower than transpose().contiguous()"),
-                          ((32, 101, 321, 64), ">= 65% of the bound")):
-        x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
-        call, plain = time_pair(lambda: fr.swap_seq_axes(x), lambda: fr.swap_seq_axes_reference(x),
-                                reps=20)
-        host = {}
-        for name, fn in (("kernel", lambda: fr.swap_seq_axes(x)),
-                         ("torch", lambda: fr.swap_seq_axes_reference(x))):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                fn()
-            host[name] = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
-        nbytes = 2 * x.numel() * 2
-        dev = device_ms(lambda: fr.swap_seq_axes(x))
-        lib = library(lambda: x.transpose(1, 2).contiguous())
-        r = row(f"K6 {list(shape)} bf16", dev, call, plain, bound(0.0, nbytes), nbytes, lib, card,
-                f"; host enqueue per call: wrapper {host['kernel']:.1f} us, "
-                f"transpose().contiguous() {host['torch']:.1f} us; aim: {target}",
-                shape=f"[B, F, T, C]={list(shape)}", dtype=torch.bfloat16)
-        r["host_us"] = host["kernel"]
-        if shape[0] == 8:
-            rows["K6"] = r
-            rows["K6"]["serving"] = None
-        else:
-            rows["K6"]["serving"] = r
-        del x
-    torch.cuda.empty_cache()
-
     clean, noisy = batches[0]
     for remat in (True, False):
         state = new_state(remat=remat)
@@ -1169,10 +1530,7 @@ def training_phases(card: str, gen: torch.Generator) -> dict:
               f"{base / 2**30:.3f} GiB held before it) ({card})", flush=True)
         del state
         torch.cuda.empty_cache()
-    return {"launches": {**launches, "K6": k6_launches}, "errs": errs, "rows": rows,
-            "cuda_core_fwd_launches": cuda_core_fwd_launches,
-            "cuda_core_bwd_launches": cuda_core_bwd_train,
-            "cuda_core_bwd_check_launches": cuda_core_bwd_launches}
+    return {"launches": launches, "relayout_launches": relayout_launches}
 
 
 def write_corpus(root, rng, n_train: int = 48, n_test: int = 6) -> str:
@@ -1394,10 +1752,6 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     from speech_enhancement_tpu_torch.cli import inference_gan, main_gan
     from speech_enhancement_tpu_torch.data import Collator, DataLoader, VoicebankDataset
     from speech_enhancement_tpu_torch.models import Discriminator, TSCNet
-    from speech_enhancement_tpu_torch.ops import fused_attention as fa
-    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
-    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
-    from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.train import (
         create_gan_state,
         l2_loss,
@@ -1406,24 +1760,19 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
     from speech_enhancement_tpu_torch.utils import load_variables
 
     t_phase = time.perf_counter()
-    counters = {"K1 tensor-core": (fa, "mma_launches"), "K1 fp32 tensor-core": (fa, "tf32_launches"),
-                "K2 tensor-core": (fa, "bwd_mma_launches"),
-                "K2 fp32 tensor-core": (fa, "bwd_tf32_launches"), "K4": (fs, "stft_launches"),
-                "K5": (fs, "istft_launches"), "add_layer_norm": (fnorm, "launches"),
-                "conv_module": (fcm, "launches")}
-    launches = dict.fromkeys(counters, 0)  # the CLI calls' own, summed
+    launches = dict.fromkeys(_native.KERNELS, 0)  # the CLI calls' own, summed
     last: dict = {}  # the latest CLI call's
 
     def run_cli(entry, args):
         """``entry(args)``; its launches, also when it raises, are put in
         ``last`` and added to ``launches``."""
-        before = {k: getattr(module, name) for k, (module, name) in counters.items()}
+        before = kernel_counts()
         try:
             return entry(args)
         finally:
-            for k, (module, name) in counters.items():
-                last[k] = getattr(module, name) - before[k]
-                launches[k] += last[k]
+            last.update(counts_since(before))
+            for k, v in last.items():
+                launches[k] += v
 
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_")
     root = tmp.name
@@ -1465,8 +1814,9 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             stats = record["train"]
-            kernels = (("K1 tensor-core", "K2 tensor-core") if precision == "bf16"
-                       else ("K1 fp32 tensor-core", "K2 fp32 tensor-core"))
+            kernels = (("shaw_attention_fwd_tensor_core", "shaw_attention_bwd_tensor_core")
+                       if precision == "bf16"
+                       else ("shaw_attention_fwd_tf32", "shaw_attention_bwd_tf32"))
             losses = (stats.gen_losses + stats.disc_losses
                       + [record["valid_gen"], record["valid_disc"]])
             check(len(stats.gen_losses) == 6 and all(math.isfinite(x) for x in losses)
@@ -1594,14 +1944,14 @@ def entry_point_phase(card: str, user_precision: tuple) -> dict:
                 "--cfg", overlay, "-m", run_dir if sweep else os.path.join(run_dir, "model_best"),
                 "-o", os.path.join(root, "enhanced"), *extra])
             results = result if sweep else [(None, result)]
-            k1 = last["K1 tensor-core"] if "bf16" in extra else last["K1 fp32 tensor-core"]
+            k1 = last["shaw_attention_fwd_tensor_core" if "bf16" in extra
+                      else "shaw_attention_fwd_tf32"]
+            path = ("stft_compress", "uncompress_istft", "add_layer_norm", "glu_conv_swish")
             check(all(np.isfinite(m).all() and len(m) == 6 for _, m in results) and k1 > 0
-                  and last["K4"] > 0 and last["K5"] > 0 and last["add_layer_norm"] > 0
-                  and last["conv_module"] > 0 and len(results) == (2 if sweep else 1),
+                  and all(last[k] > 0 for k in path) and len(results) == (2 if sweep else 1),
                   f"cli.inference_gan {' '.join(extra)}: six finite metrics "
                   f"{'; '.join(', '.join(f'{x:.3f}' for x in m) for _, m in results)}; "
-                  f"launches K1 {k1}, K4 {last['K4']}, K5 {last['K5']}, add_layer_norm "
-                  f"{last['add_layer_norm']}, conv_module {last['conv_module']}")
+                  f"launches K1 {k1}, {', '.join(f'{k} {last[k]}' for k in path)}")
 
     for (mode, precision), t in timings.items():
         wait = ("labels inside the step" if t["label_wait_ms"] is None
@@ -1684,8 +2034,6 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
         main_diffuse,
     )
     from speech_enhancement_tpu_torch.models import DiffusionTSCNet, Discriminator, TSCNet
-    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
-    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
     from speech_enhancement_tpu_torch.ops import fused_stft as fs
     from speech_enhancement_tpu_torch.train import (
         ModuleState,
@@ -1816,20 +2164,21 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
     # IEEE fp32, the same generator seed; batch 8 x 2 s
     models = {k: no_dropout(m).eval() for k, m in diffusion_models("cuda").items()}
     noisy2s = make_batches(rng, 1, 8, 2 * SR)[0][1]
-    path_launches = {"K4": 0, "K5": 0, "add_layer_norm": 0, "conv_module": 0}
+    path_launches = dict.fromkeys(_native.KERNELS, 0)
+
+    def add_to_path(counts):
+        for k, v in counts.items():
+            path_launches[k] += v
 
     def sampler(kind, schedule, plain):
         g = torch.Generator(device="cuda").manual_seed(SEED + 15)
         fn = sample_tsc if kind == "tsc-diffuse" else sample_waveform
-        k4, k5, norms, convs = fs.stft_launches, fs.istft_launches, fnorm.launches, fcm.launches
+        before = kernel_counts()
         out, ms = event_ms(lambda: fn(models[kind], noisy2s, schedule, g, plain=plain))
-        used = (fs.stft_launches - k4, fs.istft_launches - k5)
+        counts = counts_since(before)
         if not plain:
-            path_launches["K4"] += used[0]
-            path_launches["K5"] += used[1]
-            path_launches["add_layer_norm"] += fnorm.launches - norms
-            path_launches["conv_module"] += fcm.launches - convs
-        return out, ms, used
+            add_to_path(counts)
+        return out, ms, (counts["stft_compress"], counts["uncompress_istft"])
 
     for kind in FAMILIES:  # warm-up: the models' first calls at these shapes
         sampler(kind, fast, True)
@@ -1888,10 +2237,10 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
           f"launches / 6) and K5 {k5 / 6:.4f} ms ({100 * (k4 + k5) / device:.2f}% of device "
           f"time), busy share {device / host_ms:.3f} ({card})", flush=True)
     sampler_launches = dict(path_launches)
-    check(sampler_launches["add_layer_norm"] > 0 and sampler_launches["conv_module"] > 0,
+    check(sampler_launches["add_layer_norm"] > 0 and sampler_launches["glu_conv_swish"] > 0,
           f"sample_tsc's DiffusionTSCNet conformers took the add-and-norm and conv-module "
           f"kernels: {sampler_launches['add_layer_norm']} and "
-          f"{sampler_launches['conv_module']} launches")
+          f"{sampler_launches['glu_conv_swish']} launches")
 
     # (c) the entry points on the synthetic corpus: one epoch of each arch,
     # inference --fast --validate-epochs on its checkpoints, and the
@@ -1906,16 +2255,18 @@ def diffusion_phase(card: str, user_precision: tuple) -> dict:
             (record,) = main_diffuse.main(["-a", arch, "--cfg", overlay, "--output", out, "--seed",
                                            "0", "--epochs", "1"])
             train_s = time.perf_counter() - t0
-            k4, k5 = fs.stft_launches, fs.istft_launches
+            before = kernel_counts()
             t0 = time.perf_counter()
             results = inference_diffuse.main(["-a", arch, "--cfg", overlay, "--fast", "-m",
                                               os.path.join(out, arch, "default"), "-o",
                                               os.path.join(root, f"enhanced_{arch}"),
                                               "--validate-epochs"])
             infer_s = time.perf_counter() - t0
-            used = (fs.stft_launches - k4, fs.istft_launches - k5)
-            path_launches["K4"] += used[0]
-            path_launches["K5"] += used[1]
+            counts = counts_since(before)
+            used = (counts["stft_compress"], counts["uncompress_istft"])
+            # the path's add-and-norm and conv-module launches are the
+            # samplers' alone
+            add_to_path({"stft_compress": used[0], "uncompress_istft": used[1]})
             losses = record["train_losses"] + [record["valid_loss"]]
             metrics = results[0][1] if results else np.array([])
             check(len(record["train_losses"]) == 6 and all(math.isfinite(x) for x in losses)
@@ -2029,7 +2380,7 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
     flags = f"fp32 flags {user_precision}"
     timings: dict = {"timed at": f"{flags} (torch's as the process started)",
                      "compared at": "ieee"}
-    k4_path = 0  # K4 launches of the cdiffuse_inference CLI calls
+    path_launches = dict.fromkeys(_native.KERNELS, 0)  # of the |STFT| conditioner's CLI calls
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_cdiffuse_")
     root = tmp.name
     # 32 training pairs: two batches of 16 a pass, so that a stop at step 3
@@ -2209,14 +2560,18 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
     # at 50 steps, then the kernel route against plain on the same draws
     noisy_test = [load_wav(p)[0] for p in sorted(glob.glob(f"{test_dir}/*.wav"))]
 
-    def infer(model_dir, *extra):
+    def infer(model_dir, *extra, on_path=True):
         """cdiffuse_inference.main on the test wavs: (results, seconds, K4
-        launches of the call)."""
-        k4 = fs.stft_launches
+        launches of the call); ``on_path``: its launches are the path's."""
+        before = kernel_counts()
         t0 = time.perf_counter()
         out = cdiffuse_inference.main(["--model-dir", model_dir, "--noisy", test_dir, "-o",
                                        os.path.join(root, "enhanced"), *extra])
-        return out, time.perf_counter() - t0, fs.stft_launches - k4
+        secs, counts = time.perf_counter() - t0, counts_since(before)
+        if on_path:
+            for k, v in counts.items():
+                path_launches[k] += v
+        return out, secs, counts["stft_compress"]
 
     def sane(results, hop, cut_to_hop):
         """Finite, in [-1, 1], and cut to the input's length where the
@@ -2232,7 +2587,6 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
     with fp32_precision(*user_precision):
         for name, extra, steps in (("fast", ["--fast"], 6), ("50 steps", [], 50)):
             results, secs, k4 = infer(straight_dir, *extra)
-            k4_path += k4
             timings[f"cdiffuse_inference {name} s (6 utterances)"] = secs
             check(sane(results, 100, True) and k4 == len(noisy_test),
                   f"cli.cdiffuse_inference --conditioner auto ({name}, {secs:.1f} s) on the "
@@ -2244,10 +2598,10 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
                              generator=torch.Generator().manual_seed(SEED + 23))
         outs = []
         for plain in (False, True):
-            k4 = fs.stft_launches
+            before = kernel_counts()
             outs.append(cdiffuse_inference.predict(x, weights_dir, fast=True, noises=noises,
                                                    plain=plain))
-            used[plain].append(fs.stft_launches - k4)
+            used[plain].append(counts_since(before)["stft_compress"])
         errs.append(rel_rms(*outs))
     n = len(noisy_test)
     # the route by output: K4's 3xTF32 sums round otherwise than the plain
@@ -2268,14 +2622,14 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
         step = start.elapsed_time(end) / 50
         # the port's own hook (CPU and CUDA activity); its CUDA entries
         # are the kernels
-        k4_before = fs.stft_launches
+        before = kernel_counts()
         torch.cuda.synchronize()
         with trace(os.path.join(root, "trace_reverse")) as prof:
             t0 = time.perf_counter()
             cdiffuse_inference.predict(x4, weights_dir, fast=True)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
-        k4_launched = fs.stft_launches - k4_before
+        k4_launched = counts_since(before)["stft_compress"]
     kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA}
     device = sum(kernels.values())
@@ -2286,7 +2640,6 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
     # K4 at this call's shape by CUDA events (device_ms): earlier runs of
     # this script listed no K4 entry in this trace though K4 launched, where
     # a fresh process lists it under every activity setting
-    # (probes/k4_profile.py)
     x4_card = torch.from_numpy(x4[None]).cuda()
     k4_ms = device_ms(lambda: fs.fused_stft(x4_card, comp_type="none"))
     timings.update({"reverse step ms (batch 1 x 4 s)": step,
@@ -2337,10 +2690,9 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
         with fp32_precision(*user_precision):
             for mode in modes:
                 route = cdiffuse_inference.conditioner_route(model, mode)
-                results, secs, k4 = infer(out, "--fast", "--conditioner", mode)
+                results, secs, k4 = infer(out, "--fast", "--conditioner", mode,
+                                          on_path=mode == "auto")
                 stft_route = route.startswith("stft")
-                if mode == "auto":
-                    k4_path += k4
                 check(sane(results, hop, stft_route)
                       and k4 == (len(noisy_test) if stft_route else 0),
                       f"cli.cdiffuse_inference --fast --conditioner {mode} on the converted "
@@ -2352,8 +2704,8 @@ def cdiffuse_phase(card: str, user_precision: tuple) -> dict:
     torch.cuda.empty_cache()
     timings["phase s"] = time.perf_counter() - t_phase
     print(f"    phase 11 in {timings['phase s']:.1f} s; K4 launches of the cdiffuse_inference "
-          f"CLI calls {k4_path}", flush=True)
-    return {"launches": {"K4": k4_path}, "timings": timings}
+          f"CLI calls {path_launches['stft_compress']}", flush=True)
+    return {"launches": path_launches, "timings": timings}
 
 
 # --------------------------------------------------------------------------
@@ -2363,23 +2715,18 @@ DP_ROWS = 8  # the global batch of the data-parallel checks: 8 x 1 s
 
 
 def kernel_counts() -> dict:
-    """The launch counters of K1, K2, K4 and K5, of the int8 GEMMs and of
-    the add-and-norm and conv-module kernels."""
-    from speech_enhancement_tpu_torch.ops import fused_attention as fa
-    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
-    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
-    from speech_enhancement_tpu_torch.ops import fused_stft as fs
-    from speech_enhancement_tpu_torch.ops import int8
-
-    return {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
-            "K2 tensor-core": fa.bwd_mma_launches, "K2 fp32 tensor-core": fa.bwd_tf32_launches,
-            "K4": fs.stft_launches, "K5": fs.istft_launches,
-            "int8 GEMM": int8.LAUNCHES["int8_conv2d"], "add_layer_norm": fnorm.launches,
-            "conv_module": fcm.launches}
+    """A copy of the one launch count (``ops._native.launches``), by kernel
+    name."""
+    return dict(_native.launches)
 
 
 def counts_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def launched(counts: dict, *names: str) -> bool:
+    """Whether every kernel of ``names`` launched in ``counts``."""
+    return all(counts[name] > 0 for name in names)
 
 
 def int8_phase(card: str) -> dict:
@@ -2448,8 +2795,8 @@ def int8_phase(card: str) -> dict:
                                                                   ("int8", "fp32"))}
     torch.cuda.synchronize()
     launches = counts_since(before)
-    for name in ("K1 tensor-core", "K1 fp32 tensor-core", "K4", "K5", "int8 GEMM",
-                 "add_layer_norm", "conv_module"):
+    for name in ("shaw_attention_fwd_tensor_core", "shaw_attention_fwd_tf32", "stft_compress",
+                 "uncompress_istft", "int8_conv2d", "add_layer_norm", "glu_conv_swish"):
         check(launches[name] > 0, f"{name} launched {launches[name]} times by the int8 "
                                   f"serving batches (bf16 and fp32)")
     timings: dict = {"launches": launches}
@@ -2889,7 +3236,7 @@ def parallel_phase(card: str, user_precision: tuple) -> dict:
                      f"are bitwise equal")
     launches = {k: ranks[0]["fp32"]["launches"][k] + ranks[1]["fp32"]["launches"][k]
                 for k in ranks[0]["fp32"]["launches"]}
-    for name in ("K1 fp32 tensor-core", "K2 fp32 tensor-core"):
+    for name in ("shaw_attention_fwd_tf32", "shaw_attention_bwd_tf32"):
         check(launches[name] > 0, f"{name} launched {launches[name]} times by the two ranks' "
                                   f"steps")
     one_ms = one["fp32"]["step_ms"]
@@ -2954,7 +3301,8 @@ def parallel_phase(card: str, user_precision: tuple) -> dict:
         check(err <= 2e-5, f"Enhancer(devices=['cuda:0', 'cuda:0'], fused_stft=True) on 5 "
                            f"ragged utterances (6 rows, 3 + 3) vs one device: max abs "
                            f"{err:.3e} (atol 2e-5, as tests/test_parallel.py)")
-        for name in ("K1 fp32 tensor-core", "K4", "K5", "add_layer_norm", "conv_module"):
+        for name in ("shaw_attention_fwd_tf32", "stft_compress", "uncompress_istft",
+                     "add_layer_norm", "glu_conv_swish"):
             check(serving[name] > 0, f"{name} launched {serving[name]} times by the "
                                      f"two-replica Enhancer")
             launches[name] += serving[name]
@@ -2982,19 +3330,6 @@ def parallel_phase(card: str, user_precision: tuple) -> dict:
 # (train_quality_proxy.corpus_digest; tests/test_torch_quality_proxy.py)
 QUALITY_CORPUS = (16, 8, 2.0)
 QUALITY_CORPUS_SHA256 = "94497e119e15af6d39686e24ee62939c5bd732fc5475617dfa1500e07ec59f70"
-
-
-def zero_counts() -> None:
-    """Every launch counter of :func:`kernel_counts` set to 0."""
-    from speech_enhancement_tpu_torch.ops import fused_attention as fa
-    from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
-    from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
-    from speech_enhancement_tpu_torch.ops import fused_stft as fs
-    from speech_enhancement_tpu_torch.ops import int8
-
-    fa.mma_launches = fa.tf32_launches = fa.bwd_mma_launches = fa.bwd_tf32_launches = 0
-    fs.stft_launches = fs.istft_launches = fnorm.launches = fcm.launches = 0
-    int8.LAUNCHES["int8_conv2d"] = 0
 
 
 def proxy_outputs(report: str, record: str, per_key: str) -> tuple[bool, str]:
@@ -3047,7 +3382,7 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
     def counted(label: str, fn):
         """``fn()`` with the counters zeroed before it; its launches, added
         to the phase's, and its seconds."""
-        zero_counts()
+        _native.clear_launches()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3081,8 +3416,8 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
                   f"min {r['pesq_vs_fp32_min']} against the gate {gate} "
                   f"({'above' if r['pesq_vs_fp32_mean'] >= gate else 'below'}); relative RMS "
                   f"{r['rel_rms']}", flush=True)
-        check(got["K1 tensor-core"] > 0 and got["K1 fp32 tensor-core"] > 0 and got["K4"] > 0
-              and got["K5"] > 0 and got["int8 GEMM"] > 0
+        check(launched(got, "shaw_attention_fwd_tensor_core", "shaw_attention_fwd_tf32",
+                       "stft_compress", "uncompress_istft", "int8_conv2d")
               and all(math.isfinite(v) for r in results.values() for v in r.values()),
               f"(a) precision check, 8 x 2 s, five modes in {secs:.1f} s: finite scores; "
               f"launches {got}")
@@ -3101,8 +3436,9 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
               f"{QUALITY_CORPUS_SHA256[:16]}...")
         ok, summary = proxy_outputs(os.path.join(root, "quality_proxy_run.md"),
                                     os.path.join(root, "ab_scp_async_rich.json"), "per_epoch")
-        check(ok and got["K1 tensor-core"] > 0 and got["K2 tensor-core"] > 0
-              and got["K1 fp32 tensor-core"] > 0 and got["K4"] > 0 and got["K5"] > 0,
+        check(ok and launched(got, "shaw_attention_fwd_tensor_core",
+                              "shaw_attention_bwd_tensor_core", "shaw_attention_fwd_tf32",
+                              "stft_compress", "uncompress_istft"),
               f"(b) train_quality_proxy, scp one epoch bf16 --fused-attention async and the "
               f"sweep in {secs:.1f} s, exit code {rc}: report and record written, finite "
               f"metrics; {summary}; launches {got}")
@@ -3115,7 +3451,7 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
         ok, summary = proxy_outputs(os.path.join(root, "diffusion_proxy_run.md"),
                                     os.path.join(root, "diffusion_tsc-diffuse_fast.json"),
                                     "per_epoch")
-        check(ok and got["K4"] > 0 and got["K5"] > 0,
+        check(ok and launched(got, "stft_compress", "uncompress_istft"),
               f"(c) train_diffusion_proxy, tsc-diffuse one epoch of 2 steps and a --fast sweep "
               f"on 4 pairs in {secs:.1f} s, exit code {rc}: report and record written, finite "
               f"metrics; {summary}; launches {got}")
@@ -3127,7 +3463,7 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
             "--eval-every", "20", "--fast"]))
         ok, summary = proxy_outputs(os.path.join(root, "cdiffuse_proxy_run.md"),
                                     os.path.join(root, "cdiffuse_fast.json"), "per_step")
-        check(ok and got["K4"] > 0,
+        check(ok and launched(got, "stft_compress"),
               f"(d) train_cdiffuse_proxy, 20 learner steps and a --fast sweep on 4 pairs in "
               f"{secs:.1f} s, exit code {rc}: report and record written, finite metrics; "
               f"{summary}; launches {got}")
@@ -3142,16 +3478,16 @@ def quality_phase(card: str, user_precision: tuple) -> dict:
 # --------------------------------------------------------------------------
 # phase 14: the long-run and runbook scripts, cut in length
 
-# the code each counted child runs first: at exit it writes its kernel
-# launch counters (:func:`kernel_counts`) to ``<dir>/<pid>.json``; a
-# SIGKILLed child writes none
+# the code each counted child runs first: at exit it writes the one launch
+# count (``ops._native.launches``) to ``<dir>/<pid>.json``; a SIGKILLed
+# child writes none
 COUNTING_PROLOGUE = """\
 import atexit as _atexit
 def _write_launch_counts(out_dir={out_dir!r}):
     import json, os
-    import chip_smoke
+    from speech_enhancement_tpu_torch.ops import _native
     with open(os.path.join(out_dir, f"{{os.getpid()}}.json"), "w") as f:
-        json.dump(chip_smoke.kernel_counts(), f)
+        json.dump(_native.launches, f)
 _atexit.register(_write_launch_counts)
 """
 
@@ -3280,7 +3616,7 @@ def long_run_phase(card: str, user_precision: tuple) -> dict:
         ``children_only`` (a script that launches nothing in this process,
         run beside another) this process's counters are left alone."""
         if not children_only:
-            zero_counts()
+            _native.clear_launches()
         t0 = time.perf_counter()
         with children_counted(module, os.path.join(tmp.name, "counts", label)) as children:
             out = fn()
@@ -3351,9 +3687,9 @@ def long_run_phase(card: str, user_precision: tuple) -> dict:
         per_epoch = record["per_epoch"]
         check(ok and record["resume_epoch"] == 2 and all(loaded) and sorted(per_epoch, key=int)
               == [str(e) for e in range(8)]
-              and kids["K1 tensor-core"] > 0 and kids["K2 tensor-core"] > 0
-              and got["K1 tensor-core"] - kids["K1 tensor-core"] > 0
-              and got["K4"] > 0 and got["K5"] > 0,
+              and launched(kids, "shaw_attention_fwd_tensor_core", "shaw_attention_bwd_tensor_core")
+              and got["shaw_attention_fwd_tensor_core"] > kids["shaw_attention_fwd_tensor_core"]
+              and launched(got, "stft_compress", "uncompress_istft"),
               f"(b) run_full_recipe_proxy {' '.join(DRILL_FLAGS)} (bf16, fused attention) in "
               f"{secs:.1f} s, exit code {rc}: resume epoch {record['resume_epoch']} (want 2), "
               f"best epochs {record['best_epochs']}, {sum(loaded)} of 8 checkpoints load, "
@@ -3431,8 +3767,8 @@ def long_run_phase(card: str, user_precision: tuple) -> dict:
                       for rec in records for r in [rec["noisy"], *rec["per_epoch"].values()])
         bests = [max(v[0] for v in rec["per_epoch"].values()) for rec in records]
         check(rows_ok and records[0]["noisy"] == records[1]["noisy"]
-              and kids["K1 tensor-core"] > 0 and kids["K2 tensor-core"] > 0
-              and kids["K4"] > 0 and kids["K5"] > 0,
+              and launched(kids, "shaw_attention_fwd_tensor_core", "shaw_attention_bwd_tensor_core",
+                           "stft_compress", "uncompress_istft"),
               f"(c) label_bias_study arms control and bias-0.3 side by side, one epoch on "
               f"16 + 8 pairs in {secs:.1f} s: records written, finite rows, noisy rows "
               f"bit-equal (evaluation unperturbed); best PESQ {bests[0]:.3f} and "
@@ -3445,7 +3781,8 @@ def long_run_phase(card: str, user_precision: tuple) -> dict:
         row = scp.get("metrics") or ()
         check(scp.get("best_epoch") == 0 and len(row) == 6
               and all(math.isfinite(v) for v in row) and "| scp (epoch 0) | PESQ |" in text
-              and kids["K1 tensor-core"] > 0 and kids["K4"] > 0 and kids["K5"] > 0,
+              and launched(kids, "shaw_attention_fwd_tensor_core", "stft_compress",
+                           "uncompress_istft"),
               f"(d) run_quality_parity --arch scp --epochs 1 --sweep-last 1 on (b)'s corpus, "
               f"beside (c), in {secs:.1f} s: report with the scp row, best epoch "
               f"{scp.get('best_epoch')}; launches {got}")
@@ -3468,7 +3805,6 @@ def main() -> int:
     from speech_enhancement_tpu_torch.enhance import Enhancer
     from speech_enhancement_tpu_torch.metrics import pesq
     from speech_enhancement_tpu_torch.models import TSCNet
-    from speech_enhancement_tpu_torch.ops import _native
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
     from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
     from speech_enhancement_tpu_torch.ops import fused_norm as fnorm
@@ -3562,83 +3898,8 @@ def main() -> int:
             else:
                 print(f"    info {line}", flush=True)
 
-    # 3. kernels against their plain versions, main-path shapes
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {"K1": 0.0, "K1mma": 0.0, "K1tf32": 0.0, "K4": 0.0, "K5": 0.0}
-    print("[3 kernels vs plain] tolerance |kernel - plain| <= atol + rtol |plain|", flush=True)
-    # K1: fp32 differs in summation order only (rtol 1e-4, atol 1e-5, as
-    # tests/test_pallas_attention.py); bf16 may flip a rounding of P or of
-    # the output, one bf16 step of order-1 values (rtol 2e-2, atol 2e-2)
-    tols = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
-    # main-path shapes (2 s at batch 32 is B' = 3232 n = 321, whole; 8 s a
-    # slice of B' = 3232 n = 1281, clipping on), then short, full-tile and
-    # clipped edge cases (max_pos_emb 8) and the other head dims; d 16 and
-    # 32 take the tensor-core instances (bf16 and fp32 in 3xTF32), d 4 and
-    # 8 the CUDA-core one (B' = 3232 n = 321 d = 8 fp32: its timed shape)
-    both, fp32 = (torch.float32, torch.bfloat16), (torch.float32,)
-    cuda_core_launches = fa.launches
-    for b, n, max_pos, d, dtypes in ((3232, 321, 512, 16, both), (3232, 321, 512, 32, fp32),
-                                     (8, 1281, 512, 16, both), (5, 7, 512, 16, both),
-                                     (3, 100, 8, 16, both), (2, 64, 512, 16, both),
-                                     (8, 1281, 8, 16, both), (6, 321, 512, 32, both),
-                                     (4, 1281, 512, 32, both), (5, 7, 512, 32, both),
-                                     (3, 100, 8, 32, both), (6, 70, 512, 4, both),
-                                     (6, 70, 512, 8, both), (3232, 321, 512, 8, fp32)):
-        for dtype in dtypes:
-            q, k, v, table = attention_operands(b, n, dtype, gen, d=d, max_pos=max_pos)
-            instance = fa.kernel_instance(dtype, d)
-            got, lse = fa.fused_shaw_attention_fwd(q, k, v, table, max_pos, d ** -0.5,
-                                                   with_lse=True)
-            # the row log-sum-exp K2 reads: fp32 sums of the same logits in
-            # another order (atol 1e-4 on values of order 10)
-            want, lse_want = attention_reference(q, k, v, table, max_pos)
-            lse_err = float((lse - lse_want).abs().max())
-            torch.cuda.synchronize()
-            err, ok = within(got, want, *tols[dtype])
-            key = {"tensor_core": "K1mma", "tensor_core_tf32": "K1tf32",
-                   "cuda_core": "K1"}[instance]
-            errs[key] = max(errs[key], err)
-            check(ok and lse_err < 1e-4 and got.dtype == dtype and got.shape == want.shape,
-                  f"K1 ({instance}) B'={b} n={n} h=4 d={d} max_pos_emb={max_pos} {dtype}: "
-                  f"max abs err {err:.3e} (rtol {tols[dtype][0]}, atol {tols[dtype][1]}); "
-                  f"lse max abs err {lse_err:.2e} (atol 1e-4)")
-            del q, k, v, table, got, lse, want, lse_want
-        torch.cuda.empty_cache()
-    cuda_core_launches = fa.launches - cuda_core_launches
-    # K4: 3xTF32 sums (about fp32) in another order; compression amplifies
-    # the error of near-empty bins (rtol 1e-4, atol 2e-4, as
-    # tests/test_pallas_stft.py); the main path's geometry, then n_fft 300,
-    # hop 75 (K padded 151 -> 152, a ragged last frame tile)
-    for shape, n_fft, hop in (((32, 32000), 400, 100), ((8, 24037), 300, 75)):
-        x = torch.randn(*shape, device="cuda", generator=gen)  # RMS 1, as normalized audio
-        spec = fs.fused_stft(x, n_fft, hop)
-        spec_ref = fs.stft_reference(x, n_fft, hop)
-        torch.cuda.synchronize()
-        err, ok = within(torch.view_as_real(spec), torch.view_as_real(spec_ref), 1e-4, 2e-4)
-        errs["K4"] = max(errs["K4"], err)
-        check(ok and spec.shape == spec_ref.shape == (shape[0], 1 + shape[1] // hop,
-                                                      n_fft // 2 + 1),
-              f"K4 stft+compress {list(shape)} n_fft {n_fft} hop {hop} fp32: max abs err "
-              f"{err:.3e} (rtol 1e-4, atol 2e-4)")
-    # K5: 3xTF32 sums (about fp32) of 201 products of order-1 values in
-    # another order; the main path's geometry, then n_fft 300, hop 75 (K
-    # padded 151 -> 152, 151 of 208 n columns); 31963 and 23911 cut inside
-    # a hop block
-    for shape, n_fft, hop, lengths in (((32, 32000), 400, 100, (32000, 31963)),
-                                       ((8, 24037), 300, 75, (24000, 23911))):
-        x = torch.randn(*shape, device="cuda", generator=gen)
-        spec_ref = fs.stft_reference(x, n_fft, hop)
-        for length in lengths:
-            wav = fs.fused_istft(spec_ref, n_fft, hop, length=length)
-            wav_ref = fs.istft_reference(spec_ref, n_fft, hop, length=length)
-            torch.cuda.synchronize()
-            err, ok = within(wav, wav_ref, 1e-4, 1e-4)
-            errs["K5"] = max(errs["K5"], err)
-            check(ok and wav.shape == wav_ref.shape == (shape[0], length),
-                  f"K5 uncompress+istft {list(spec_ref.shape)} n_fft {n_fft} hop {hop} length "
-                  f"{length} fp32: max abs err {err:.3e} (rtol 1e-4, atol 1e-4)")
-    del x, spec, spec_ref, wav, wav_ref
-    torch.cuda.empty_cache()
+    # 3. the serving path's kernels against their plain versions, then timed
+    checked = kernel_phase(3, card)
 
     # 4. the main path, through the entry points a user calls
     model = TSCNet(64, 201, fused_attention=True, device="cuda",
@@ -3659,24 +3920,21 @@ def main() -> int:
                           device="cuda")
     plain_fp32 = Enhancer(plain_model, matmul_precision=None, device="cuda")
 
-    fa.launches = fa.mma_launches = fa.tf32_launches = fs.stft_launches = fs.istft_launches = 0
-    fnorm.launches = fcm.launches = 0
+    _native.clear_launches()
     t0 = time.perf_counter()
     out = {"kernel bf16": kernel_bf16.enhance(utts, batch_size=8),
            "kernel fp32": kernel_fp32.enhance(utts, batch_size=8),
            "kernel fp32 default (TF32)": kernel_tf32.enhance(utts, batch_size=8)}
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"K1 tensor-core": fa.mma_launches, "K1 fp32 tensor-core": fa.tf32_launches,
-                "K4": fs.stft_launches, "K5": fs.istft_launches,
-                "add_layer_norm": fnorm.launches, "conv_module": fcm.launches}
-    main_cuda_core = fa.launches
+    serving = kernel_counts()
     print(f"[4 main path] 12 utterances {min(lengths)}-{max(lengths)} samples, batch 8, "
           f"bf16 + fp32 (matmul_precision None and the default) kernel path in {main_s:.2f} s "
-          f"(first calls included); launches {launches}; CUDA-core K1 {fa.launches} (no main "
-          f"path has d 4 or 8)", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched {n} times by the main path")
+          f"(first calls included); launches {serving} (no main path has d 4 or 8)",
+          flush=True)
+    for name in ("shaw_attention_fwd_tensor_core", "shaw_attention_fwd_tf32", "stft_compress",
+                 "uncompress_istft", "add_layer_norm", "glu_conv_swish"):
+        check(serving[name] > 0, f"{name} launched {serving[name]} times by the main path")
     out["plain bf16"] = plain_bf16.enhance(utts, batch_size=8)
     out["plain fp32"] = plain_fp32.enhance(utts, batch_size=8)
     for name, res in out.items():
@@ -3698,150 +3956,34 @@ def main() -> int:
           f"attention takes its softmax in bf16, the kernel in fp32)", flush=True)
     del out
 
-    # 5. timings
+    # 5. timings (the fp32 kernel path's are cmgan-serve-batch's, in sebench/)
     print(f"[5 timings] per call: CUDA events around one call, median of 10 after "
-          f"warm-up; device: see the header; card {card}", flush=True)
+          f"warm-up; card {card}", flush=True)
     batch = (0.1 * rng.standard_normal((32, 32000))).astype(np.float32)
     kernel_ms, plain_ms = time_pair(lambda: kernel_bf16.enhance_batch(batch),
                                     lambda: plain_bf16.enhance_batch(batch), reps=10)
     print(f"    enhance_batch [32, 32000] bf16: kernel path {kernel_ms:.3f} ms, plain path "
           f"{plain_ms:.3f} ms ({card})", flush=True)
-    kernel_ms32, plain_ms32 = time_pair(lambda: kernel_fp32.enhance_batch(batch),
-                                        lambda: plain_fp32.enhance_batch(batch), reps=6)
-    print(f"    enhance_batch [32, 32000] fp32, matmul_precision=None: kernel path "
-          f"{kernel_ms32:.3f} ms, plain path {plain_ms32:.3f} ms ({card})", flush=True)
-    tf32_ms, ieee_ms = time_pair(lambda: kernel_tf32.enhance_batch(batch),
-                                 lambda: kernel_fp32.enhance_batch(batch), reps=6)
-    print(f"    enhance_batch [32, 32000] fp32 kernel path, in turns: matmul_precision "
-          f"\"bfloat16\" (the default; TF32 matmuls and convolutions) {tf32_ms:.3f} ms, None "
-          f"(full fp32) {ieee_ms:.3f} ms ({card})", flush=True)
     from torch.profiler import ProfilerActivity, profile
-    for label, enhancer in (("bf16", kernel_bf16), ("fp32", kernel_fp32),
-                            ("fp32 default (TF32)", kernel_tf32)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            enhancer.enhance_batch(batch)
-        kernel_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        total_ms = sum(us for _, us in kernel_us) / 1e3
-        k1_ms = sum(us for key, us in kernel_us if "shaw_attention" in key) / 1e3
-        print(f"    torch.profiler, one enhance_batch [32, 32000] {label}, kernel path: "
-              f"{total_ms:.3f} ms of device kernel time, K1 {k1_ms:.3f} ms "
-              f"({100 * k1_ms / total_ms:.1f}%) ({card})", flush=True)
-        busiest = sorted(kernel_us, key=lambda e: -e[1])[:6]
-        print("    info busiest kernels: " + "; ".join(f"{us / 1e3:.3f} ms {key[:60]}"
-                                                   for key, us in busiest), flush=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernel_bf16.enhance_batch(batch)
+    kernel_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_ms = sum(us for _, us in kernel_us) / 1e3
+    k1_ms = sum(us for key, us in kernel_us if "shaw_attention" in key) / 1e3
+    print(f"    torch.profiler, one enhance_batch [32, 32000] bf16, kernel path: "
+          f"{total_ms:.3f} ms of device kernel time, K1 {k1_ms:.3f} ms "
+          f"({100 * k1_ms / total_ms:.1f}%) ({card})", flush=True)
+    print("    info busiest kernels: " + "; ".join(
+        f"{us / 1e3:.3f} ms {key[:60]}" for key, us in sorted(kernel_us, key=lambda e: -e[1])[:6]),
+        flush=True)
     del kernel_bf16, kernel_fp32, kernel_tf32, plain_bf16, plain_fp32, prof
     torch.cuda.empty_cache()
 
-    rows = {}
-    q, k, v, table = attention_operands(3232, 321, torch.bfloat16, gen)
-    call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                            lambda: fa.shaw_attention_reference(q, k, v, table))
-    alone, chain = sdpa_yardstick(q, k, v, table)
-    bnd, nbytes = attention_bound(3232, 321, torch.bfloat16)
-    rows["K1mma"] = row("K1 tensor-core B'=3232 n=321 bf16 (2 s at batch 32)",
-                        device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)), call,
-                        plain, bnd, nbytes, alone, card,
-                        f"; SDPA with the bias built beforehand "
-                        f"{'n/a' if chain is None else f'{chain:.4f} ms'}",
-                        shape="B'=3232 n=321 h=4 d=16", dtype=torch.bfloat16)
-    rows["K1mma"]["library_chain_ms"] = chain
-    del q, k, v, table
-    torch.cuda.empty_cache()
-    q, k, v, table = attention_operands(3232, 1281, torch.bfloat16, gen)
-    call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                            lambda: chunked(fa.shaw_attention_reference, 202, q, k, v, table),
-                            warmup=1, reps=2)
-    bnd, nbytes = attention_bound(3232, 1281, torch.bfloat16)
-    dev = device_ms(lambda: fa.fused_shaw_attention(q, k, v, table))
-    # SDPA's bias would take 26 GB whole: its yardstick is 8 chunks of
-    # B' = 404 (a 5.3 GB bias each, built beforehand), one chunk timed, x 8
-    chunk_ms, _ = sdpa_yardstick(q[:404], k[:404], v[:404], table)
-    lib_long = None if chunk_ms is None else 8 * chunk_ms
-    long = row("K1 tensor-core B'=3232 n=1281 bf16 (8 s at batch 32)", dev, call,
-               plain, bnd, nbytes, lib_long, card, "; plain in 16 chunks of 202; library: "
-               "SDPA with the bias, 8 chunks of B'=404, one timed x 8",
-               shape="B'=3232 n=1281 h=4 d=16", dtype=torch.bfloat16)
-    rows["K1mma"]["n1281"] = long
-    del q, k, v, table
-    torch.cuda.empty_cache()
-    q, k, v, table = attention_operands(10272, 101, torch.bfloat16, gen)
-    eager = device_ms(lambda: torch.softmax(
-        (torch.einsum("bihd,bjhd->bhij", q, k) + torch.einsum(
-            "bihd,ijd->bhij", q, table[fa.relative_index(101, 512, q.device)])) * 0.25,
-        dim=-1) @ v.transpose(1, 2))
-    print(f"    info K1 tensor-core at the freq conformer's B'=10272 n=101 bf16 (not routed "
-          f"through K1): device {device_ms(lambda: fa.fused_shaw_attention(q, k, v, table)):.4f}"
-          f" ms; the eager bf16 attention there {eager:.4f} ms ({card})", flush=True)
-    del q, k, v, table
-    torch.cuda.empty_cache()
-    # fp32: the 3xTF32 tensor-core instance at the serving shape, held to
-    # three TF32 products per fp32 product (beside it the 67 TFLOP/s fp32
-    # bound), and the CUDA-core instance at d = 8, the head dim it keeps
-    for d, key, label in ((16, "K1tf32", "K1 fp32 tensor-core (3xTF32)"),
-                          (8, "K1", "K1 CUDA-core")):
-        q, k, v, table = attention_operands(3232, 321, torch.float32, gen, d=d)
-        call, plain = time_pair(lambda: fa.fused_shaw_attention(q, k, v, table),
-                                lambda: fa.shaw_attention_reference(q, k, v, table))
-        fp32_bnd, nbytes = attention_bound(3232, 321, torch.float32, d=d)
-        tf32_bnd, _ = attention_bound(3232, 321, torch.float32, d=d, tf32x3=True)
-        bnd, other, other_name = ((tf32_bnd, fp32_bnd, "67 TFLOP/s fp32") if key == "K1tf32"
-                                  else (fp32_bnd, tf32_bnd, "3xTF32"))
-        dev = device_ms(lambda: fa.fused_shaw_attention(q, k, v, table))
-        rows[key] = row(f"{label} B'=3232 n=321 d={d} fp32", dev, call, plain, bnd, nbytes,
-                        sdpa_yardstick(q, k, v, table)[0], card,
-                        f"; {other_name} bound {other[0]:.4f} ms ({other[1]}; "
-                        f"{100 * other[0] / dev:.1f}%)",
-                        shape=f"B'=3232 n=321 h=4 d={d}", dtype=torch.float32)
-        rows[key]["bound_3xtf32_ms" if key == "K1" else "bound_fp32_cuda_core_ms"] = other[0]
-        del q, k, v, table
-        torch.cuda.empty_cache()
-
-    x = torch.randn(32, 32000, device="cuda", generator=gen)
-    spec = fs.stft_reference(x)
-    window = torch.hamming_window(400, device="cuda")
-    # K4, K5: what an FFT-based STFT needs, a real FFT of 400 samples per
-    # frame (2.5 N log2 N flops) plus the window and a few flops per bin for
-    # the compression; the bytes (20.6 MB) bound it, not these 0.12 GFLOP
-    fft_flops = 32 * 321 * (2.5 * 400 * math.log2(400) + 400 + 8 * 201)
-    stft_bytes = x.numel() * 4 + spec.numel() * 8
-    # K4 and K5 against their library calls in turns (5 rounds of kernel
-    # then library, or library then kernel, device_ms each); the rows carry
-    # the medians
-    pairs = {
-        "K4": (lambda: fs.fused_stft(x), lambda: fs._gated_rescale(torch.stft(
-            x, 400, 100, window=window, return_complex=True).transpose(1, 2), -0.35),
-            lambda: fs.stft_reference(x), "K4 stft+compress [32, 32000] fp32",
-            "torch.stft, then the compression", "[32, 32000] n_fft=400 hop=100"),
-        "K5": (lambda: fs.fused_istft(spec, length=32000), lambda: torch.istft(
-            fs._gated_rescale(spec, (1.0 / 0.3 - 1.0) / 2.0).transpose(1, 2), 400, 100,
-            window=window, length=32000), lambda: fs.istft_reference(spec, length=32000),
-            "K5 uncompress+istft [32, 321, 201] fp32", "the uncompression, then torch.istft",
-            "[32, 321, 201] n_fft=400 hop=100"),
-    }
-    for key, (kernel_fn, library_fn, plain_fn, label, lib_label, shape) in pairs.items():
-        call, plain = time_pair(kernel_fn, plain_fn)
-        kern, lib, ratios = in_turns(kernel_fn, library_fn)
-        kern_med, lib_med = statistics.median(kern), statistics.median(lib)
-        verdict = "wins" if kern_med < lib_med else "loses"
-        rows[key] = row(label, kern_med, call, plain, bound(fft_flops, stft_bytes, torch.float32),
-                        stft_bytes, lib_med, card,
-                        f"; library: {lib_label}; in turns, 5 rounds: kernel "
-                        f"{', '.join(f'{m:.4f}' for m in kern)} ms, library "
-                        f"{', '.join(f'{m:.4f}' for m in lib)} ms, library/kernel "
-                        f"{', '.join(f'{r:.2f}' for r in ratios)}: the kernel {verdict}",
-                        shape=shape, dtype=torch.float32)
-        rows[key]["in_turns"] = {"kernel_ms": kern, "library_ms": lib}
-        if key == "K4":
-            check(kern_med <= lib_med, f"K4 device time {kern_med:.4f} ms no higher than "
-                                       f"{lib_label} {lib_med:.4f} ms (medians in turns)")
-    del x, spec
-    torch.cuda.empty_cache()
-    norm_phase = add_norm_phase(card, gen)
-    conv_phase = conv_module_phase(card, gen)
-
-    # 6-8. the training path
-    train = training_phases(card, gen)
+    # 6. the training path's kernels against their plain versions, then timed
+    checked.update(kernel_phase(6, card))
+    # 7-8. the training path
+    train = training_phases(card)
     # 9. the entry points a user runs
     entry = entry_point_phase(card, user_precision)
     # 10. the diffusion families
@@ -3862,91 +4004,14 @@ def main() -> int:
         for what in FAILURES:
             print(f"    FAIL {what}", file=sys.stderr)
         return 1
-    pkg = "speech_enhancement_tpu_torch"
-    tl, el = train["launches"], entry["launches"]
-
-    def by_path(serving, training, entry_points, diffusion=None, cdiffuse=None, name=None):
-        paths = {"serving (phase 4)": serving, "training (phase 7)": training,
-                 "entry points (phase 9)": entry_points}
-        if diffusion is not None:
-            paths["diffusion (phase 10)"] = diffusion
-        if cdiffuse is not None:
-            paths["cdiffuse (phase 11)"] = cdiffuse
-        if name is not None:  # phase 12's, 13's and 14's paths
-            paths["int8 serving (phase 12)"] = int8_t["launches"][name]
-            paths["data parallel (phase 12)"] = parallel_t["launches"][name]
-            paths["quality scripts (phase 13)"] = quality_t["launches"][name]
-            paths["long-run scripts (phase 14)"] = long_run_t["launches"][name]
-        return {"launches": sum(paths.values()), "launches_by_path": paths}
-
-    rows["K1mma"]["n161"] = train["rows"]["K1mma_n161"]
-    rows["K1tf32"]["n161"] = train["rows"]["K1tf32_n161"]
-    kernels = [
-        {"name": "shaw_attention_fwd_tensor_core", "route": "cuda",
-         "source": f"{pkg}/csrc/shaw_attention_mma.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         **by_path(launches["K1 tensor-core"], tl["K1 tensor-core"], el["K1 tensor-core"],
-                   name="K1 tensor-core"),
-         "max_abs_err": errs["K1mma"], **rows["K1mma"]},
-        {"name": "shaw_attention_fwd_tf32", "route": "cuda",
-         "source": f"{pkg}/csrc/shaw_attention_tf32.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         **by_path(launches["K1 fp32 tensor-core"], tl["K1 fp32 tensor-core"],
-                   el["K1 fp32 tensor-core"], name="K1 fp32 tensor-core"),
-         "max_abs_err": errs["K1tf32"], **rows["K1tf32"]},
-        {"name": "shaw_attention_fwd_cuda_core", "route": "cuda",
-         "source": f"{pkg}/csrc/shaw_attention.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:201",
-         "launches": main_cuda_core + train["cuda_core_fwd_launches"],
-         "check_launches": cuda_core_launches,
-         "check_launches_from": "phase-3 checks at head dims 4 and 8: no main path reaches it",
-         "max_abs_err": errs["K1"], **rows["K1"]},
-        {"name": "shaw_attention_bwd_tensor_core", "route": "cuda",
-         "source": f"{pkg}/csrc/shaw_attention_bwd_mma.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         **by_path(0, tl["K2 tensor-core"], el["K2 tensor-core"], name="K2 tensor-core"),
-         "max_abs_err": train["errs"]["K2mma"],
-         **train["rows"]["K2mma"]},
-        {"name": "shaw_attention_bwd_tf32", "route": "cuda",
-         "source": f"{pkg}/csrc/shaw_attention_bwd_tf32.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         **by_path(0, tl["K2 fp32 tensor-core"], el["K2 fp32 tensor-core"],
-                   name="K2 fp32 tensor-core"),
-         "max_abs_err": train["errs"]["K2tf32"],
-         **train["rows"]["K2tf32"]},
-        {"name": "shaw_attention_bwd_cuda_core", "route": "cuda",
-         "source": f"{pkg}/csrc/shaw_attention_bwd.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_attention.py:533 and :616",
-         "launches": train["cuda_core_bwd_launches"],
-         "check_launches": train["cuda_core_bwd_check_launches"],
-         "check_launches_from": "phase-6 checks at head dims 4 and 8: no main path reaches it",
-         "max_abs_err": train["errs"]["K2"], **train["rows"]["K2"]},
-        {"name": "stft_compress", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:74",
-         **by_path(launches["K4"], 0, el["K4"], diffusion["launches"]["K4"],
-                   cdiffuse["launches"]["K4"], name="K4"),
-         "max_abs_err": errs["K4"], **rows["K4"]},
-        {"name": "uncompress_istft", "route": "cuda", "source": f"{pkg}/csrc/stft.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_stft.py:157",
-         **by_path(launches["K5"], 0, el["K5"], diffusion["launches"]["K5"], name="K5"),
-         "max_abs_err": errs["K5"], **rows["K5"]},
-        {"name": "add_layer_norm", "route": "cuda", "source": f"{pkg}/csrc/add_layer_norm.cu",
-         "replaces": "no TPU kernel: aten's LayerNorm and the adds around it",
-         **by_path(launches["add_layer_norm"], 0, el["add_layer_norm"],
-                   diffusion["launches"]["add_layer_norm"], name="add_layer_norm"),
-         "max_abs_err": norm_phase["errs"], **norm_phase["rows"]["batch"],
-         "single": norm_phase["rows"]["single"]},
-        {"name": "glu_conv_swish", "route": "cuda", "source": f"{pkg}/csrc/conv_module.cu",
-         "replaces": "no TPU kernel: the conv module's eager GLU, pad, depthwise conv, "
-                     "BatchNorm and swish",
-         **by_path(launches["conv_module"], 0, el["conv_module"],
-                   diffusion["launches"]["conv_module"], name="conv_module"),
-         "max_rel_rms": conv_phase["errs"], **conv_phase["rows"]["batch"],
-         "single": conv_phase["rows"]["single"], "bf16": conv_phase["rows"]["batch_bf16"]},
-        {"name": "swap_seq_axes", "route": "cuda", "source": f"{pkg}/csrc/relayout.cu",
-         "replaces": "speech_enhancement_tpu/ops/pallas_relayout.py:48",
-         "launches": tl["K6"], "max_abs_err": train["errs"]["K6"], **train["rows"]["K6"]},
-    ]
+    kernels = kernels_line(checked, {
+        "serving (phase 4)": serving, "training (phase 7)": train["launches"],
+        "fused_relayout step (phase 7)": train["relayout_launches"],
+        "entry points (phase 9)": entry["launches"], "diffusion (phase 10)": diffusion["launches"],
+        "cdiffuse (phase 11)": cdiffuse["launches"], "int8 serving (phase 12)": int8_t["launches"],
+        "data parallel (phase 12)": parallel_t["launches"],
+        "quality scripts (phase 13)": quality_t["launches"],
+        "long-run scripts (phase 14)": long_run_t["launches"]})
     print(json.dumps({"entry_point_timings": entry["timings"]}))
     print(json.dumps({"diffusion_timings": diffusion["timings"]}))
     print(json.dumps({"cdiffuse_timings": cdiffuse["timings"]}))

@@ -58,6 +58,23 @@ build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
 _gxx_target: list[str] = []  # what -march=native resolves to, once per process
 
+# every kernel whose launches are counted: the hand-written kernels of
+# csrc/ (by instance) and the int8 GEMMs of ops/int8.py
+KERNELS = ("shaw_attention_fwd_tensor_core", "shaw_attention_fwd_tf32",
+           "shaw_attention_fwd_cuda_core", "shaw_attention_bwd_tensor_core",
+           "shaw_attention_bwd_tf32", "shaw_attention_bwd_cuda_core", "stft_compress",
+           "uncompress_istft", "add_layer_norm", "glu_conv_swish", "swap_seq_axes",
+           "int8_conv2d")
+# launches on the card in this process since import (or since
+# clear_launches()), by kernel name; a wrapper adds one per launch, and the
+# plain versions that CPU tensors take add none
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def clear_launches() -> None:
+    """Set every kernel's count in :data:`launches` to 0."""
+    launches.update(dict.fromkeys(KERNELS, 0))
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")

@@ -51,15 +51,6 @@ __all__ = [
     "tf32_occupancy",
 ]
 
-# kernel launches since import (or since a caller reset them): K1's CUDA-core
-# instance, K1's bf16 and fp32 tensor-core instances, and K2's likewise
-launches = 0
-mma_launches = 0
-tf32_launches = 0
-bwd_launches = 0
-bwd_mma_launches = 0
-bwd_tf32_launches = 0
-
 _HEAD_DIMS = (4, 8, 16, 32)  # the head dims K1 and K2 are built for
 _DTYPES = (torch.float32, torch.bfloat16)
 # the instance of each (dtype, head dim >= 16, direction); head dims 4 and
@@ -323,7 +314,6 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse)``, with ``lse`` the ``[B, h, n]`` fp32 row log-sum-exp that K2
     takes when ``with_lse`` and the kernel ran, else None.  ``table`` is in
     q's dtype.  The instance is :func:`kernel_instance`'s."""
-    global launches, mma_launches, tf32_launches
     if q.device.type == "cpu":
         return shaw_attention_reference(q, k, v, table, max_pos_emb, scale), None
     if q.device.type != "cuda":
@@ -347,19 +337,19 @@ def fused_shaw_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *pointers, b, n, h, d, *strides, max_pos_emb, float(scale) * _LOG2E,
             _native.current_stream(q.device))
         _native.check(status, "se_shaw_attention_mma")
-        mma_launches += 1
+        _native.launches["shaw_attention_fwd_tensor_core"] += 1
     elif instance == "tensor_core_tf32":
         status = build_tf32().se_shaw_attention_tf32(
             *pointers, b, n, h, d, *strides, max_pos_emb, float(scale) * _LOG2E,
             _native.current_stream(q.device))
         _native.check(status, "se_shaw_attention_tf32")
-        tf32_launches += 1
+        _native.launches["shaw_attention_fwd_tf32"] += 1
     else:
         status = build().se_shaw_attention(
             *pointers, int(q.dtype == torch.bfloat16), b, n, h, d, *strides, max_pos_emb,
             float(scale), _native.current_stream(q.device))
         _native.check(status, "se_shaw_attention")
-        launches += 1
+        _native.launches["shaw_attention_fwd_cuda_core"] += 1
     return out, lse
 
 
@@ -415,7 +405,6 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in the table's (summed in fp32 with atomics, so not bit-deterministic
     from run to run).  CPU tensors take the plain version, which needs
     neither ``out`` nor ``lse``."""
-    global bwd_launches, bwd_mma_launches, bwd_tf32_launches
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -455,19 +444,19 @@ def fused_shaw_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *pointers, b, n, h, d, *strides, max_pos_emb, float(scale), groups, band_rows,
             stream)
         _native.check(status, "se_shaw_attention_bwd_mma")
-        bwd_mma_launches += 1
+        _native.launches["shaw_attention_bwd_tensor_core"] += 1
     elif instance == "tensor_core_tf32":
         status = build_bwd_tf32().se_shaw_attention_bwd_tf32(
             *pointers, b, n, h, d, *strides, max_pos_emb, float(scale), groups, band_rows,
             stream)
         _native.check(status, "se_shaw_attention_bwd_tf32")
-        bwd_tf32_launches += 1
+        _native.launches["shaw_attention_bwd_tf32"] += 1
     else:
         status = build_bwd().se_shaw_attention_bwd(
             *pointers, int(q.dtype == torch.bfloat16), b, n, h, d, *strides, max_pos_emb,
             float(scale), groups, band_rows, stream)
         _native.check(status, "se_shaw_attention_bwd")
-        bwd_launches += 1
+        _native.launches["shaw_attention_bwd_cuda_core"] += 1
     return dq, dk, dv, dtable.to(table.dtype)
 
 

@@ -38,9 +38,6 @@ from speech_enhancement_tpu_torch.utils.profiling import count
 
 __all__ = ["build", "eager_reason", "glu_conv_swish", "glu_conv_swish_reference", "u_layout"]
 
-# kernel launches since import (or since a caller reset it)
-launches = 0
-
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_TAPS = 31
 TILE, GROUP = 128, 32  # output frames and channels a block, as the kernel has them
@@ -148,11 +145,10 @@ def _check(u: torch.Tensor, conv: nn.Conv1d, norm: nn.BatchNorm1d) -> None:
 
 
 def count_launch(u: torch.Tensor) -> None:
-    """Count one launch on ``u``: :data:`launches`, and under a profiler
+    """Count one launch on ``u``: in ``_native.launches``, and under a profiler
     session ``convmod.launches`` and ``convmod.bytes`` (u read once, its
     half written once)."""
-    global launches
-    launches += 1
+    _native.launches["glu_conv_swish"] += 1
     count("convmod.launches", 1)
     count("convmod.bytes", u.numel() * u.element_size() * 3 // 2)
 

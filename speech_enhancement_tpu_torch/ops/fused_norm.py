@@ -35,9 +35,6 @@ from speech_enhancement_tpu_torch.utils.profiling import count
 
 __all__ = ["add_layer_norm", "add_layer_norm_reference", "build", "y_layout"]
 
-# kernel launches since import (or since a caller reset it)
-launches = 0
-
 _DTYPES = (torch.float32, torch.bfloat16)
 # y's layouts, as the C entry point numbers them
 NO_Y, ROWS, COLS = 0, 1, 2
@@ -112,7 +109,6 @@ def add_layer_norm(x: torch.Tensor, y: torch.Tensor | None, scale: float,
     on PyTorch's current stream for CUDA tensors (fp32 or bf16, statistics
     in fp32); the plain version for CPU tensors.  Without gradients: the
     conformer takes it only where autograd is off."""
-    global launches
     w, b = _check(x, y, skip, norm)
     device = x.device
     if device.type == "cpu":
@@ -144,7 +140,7 @@ def add_layer_norm(x: torch.Tensor, y: torch.Tensor | None, scale: float,
                      scale, norm.eps, _native.current_stream(device))
         if status:
             _native.check(status, "se_add_layer_norm")
-        launches += 1
+        _native.launches["add_layer_norm"] += 1
         count("norm.launches", 1)
         count("norm.bytes", numel * x.element_size()
               * (2 + (y is not None) + (skip is not None) + (r is not None)))

@@ -21,9 +21,6 @@ from speech_enhancement_tpu_torch.ops import _native
 
 __all__ = ["build", "swap_seq_axes", "swap_seq_axes_reference"]
 
-# kernel launches (forward and backward) since import (or since a caller reset it)
-launches = 0
-
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -59,7 +56,6 @@ def _check(x: torch.Tensor) -> None:
 
 
 def _swap(x: torch.Tensor) -> torch.Tensor:
-    global launches
     device = x.device
     if device.type == "cpu":
         return swap_seq_axes_reference(x)
@@ -78,7 +74,7 @@ def _swap(x: torch.Tensor) -> torch.Tensor:
                       _native.current_stream(device))
     if status:
         _native.check(status, "se_swap_axes")
-    launches += 1
+    _native.launches["swap_seq_axes"] += 1
     return y
 
 

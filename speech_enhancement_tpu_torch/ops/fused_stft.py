@@ -32,10 +32,6 @@ from speech_enhancement_tpu_torch.ops.stft import istft, stft
 __all__ = ["basis_fragment_order", "build", "fused_stft", "fused_istft", "istft_basis",
            "istft_occupancy", "istft_reference", "stft_basis", "stft_reference", "supports"]
 
-# kernel launches of each wrapper since import (or since a caller reset it)
-stft_launches = 0
-istft_launches = 0
-
 _COMP_TYPES = ("pow", "none")
 _MAX_R = 8  # csrc/stft.cu kMaxR
 _TILE_BINS = 104  # csrc/stft.cu kBins: bins per K4 block, n per K5 chunk
@@ -197,7 +193,6 @@ def fused_stft(x: torch.Tensor, n_fft: int = 400, hop: int = 100,
                comp_type: str = "pow") -> torch.Tensor:
     """Fused (optionally power-compressed) STFT: float32 ``[B, L]`` ->
     complex64 ``[B, T, n_fft // 2 + 1]`` with ``T = 1 + L // hop``."""
-    global stft_launches
     _check_geometry(n_fft, hop, comp_type)
     if x.ndim == 1:
         x = x[None]
@@ -220,7 +215,7 @@ def fused_stft(x: torch.Tensor, n_fft: int = 400, hop: int = 100,
         ctypes.c_void_p(out.data_ptr()), batch, length, n_frames, n_fft, hop,
         8 * k_steps, n_tiles, int(comp_type == "pow"), _native.current_stream(x.device))
     _native.check(status, "se_stft")
-    stft_launches += 1
+    _native.launches["stft_compress"] += 1
     return out
 
 
@@ -228,7 +223,6 @@ def fused_istft(spec: torch.Tensor, n_fft: int = 400, hop: int = 100,
                 comp_type: str = "pow", length: int | None = None) -> torch.Tensor:
     """Fused (optionally power-uncompressed) iSTFT: complex64 ``[B, T, F]``
     -> float32 ``[B, min(length, hop * (T - 1))]``."""
-    global istft_launches
     _check_geometry(n_fft, hop, comp_type)
     if spec.device.type == "cpu":
         return istft_reference(spec, n_fft, hop, comp_type, length)
@@ -250,5 +244,5 @@ def fused_istft(spec: torch.Tensor, n_fft: int = 400, hop: int = 100,
         ctypes.c_void_p(out.data_ptr()), batch, n_frames, n_fft, hop, out_len,
         8 * k_steps, n_chunks, int(comp_type == "pow"), _native.current_stream(spec.device))
     _native.check(status, "se_istft")
-    istft_launches += 1
+    _native.launches["uncompress_istft"] += 1
     return out

@@ -13,8 +13,8 @@ CUDA tensor each tap's GEMM is ``torch._int_mm`` (cuBLASLt's int8 tensor
 cores); a shape it refuses (rows <= 16, Cin or Cout not a multiple of 8)
 raises.  On a CPU tensor the plain version runs: the int8 values
 multiplied as fp32, which is exact here (a tap sums at most 256 products
-of at most 127^2, under 2^24).  ``LAUNCHES["int8_conv2d"]`` counts the
-calls that took the card's route.
+of at most 127^2, under 2^24).  ``_native.launches["int8_conv2d"]``
+counts the tap GEMMs that took the card's route.
 
 :class:`QuantConv2d` is an ``nn.Conv2d`` with the same ``weight`` /
 ``bias`` (so a float model's ``state_dict`` loads unchanged) whose forward
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LAUNCHES = {"int8_conv2d": 0}
+from speech_enhancement_tpu_torch.ops import _native
 
 
 def quantize_symmetric(x: torch.Tensor, dim=None, eps: float = 1e-12):
@@ -52,7 +52,7 @@ def _tap_matmul(a: torch.Tensor, b: torch.Tensor, plain: bool = False) -> torch.
         if m <= 16 or k % 8 or n % 8:
             raise ValueError(f"torch._int_mm takes [M, K] x [K, N] with M > 16 and K, N "
                              f"multiples of 8; got M={m} K={k} N={n}")
-        LAUNCHES["int8_conv2d"] += 1
+        _native.launches["int8_conv2d"] += 1
         return torch._int_mm(a, b)
     return (a.float() @ b.float()).to(torch.int32)
 

@@ -16,7 +16,7 @@ of 0xff bytes (NaN in fp32 and bf16) is allocated and freed, so the
 outputs' ``torch.empty`` buffers start as NaN.  Shapes: the time
 conformer's B'=808 n=161 and the frequency conformer's B'=1288 n=101 of a
 batch of 8 x 1 s, h=4, d=16, max_pos_emb 512, bf16 and fp32 (the instances
-the wrappers pick, named by the launch counters that move).  Prints the
+the wrappers pick, named by the launch counts that move).  Prints the
 card's name and power limit first.
 """
 
@@ -26,11 +26,6 @@ import argparse
 import subprocess
 import sys
 from pathlib import Path
-
-# ops/fused_attention.py's launch counters, K1's then K2's
-COUNTERS = ("launches", "mma_launches", "tf32_launches", "bwd_launches", "bwd_mma_launches",
-            "bwd_tf32_launches")
-
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -42,6 +37,7 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from speech_enhancement_tpu_torch.ops import _native
     from speech_enhancement_tpu_torch.ops import fused_attention as fa
 
     if not torch.cuda.is_available():
@@ -71,11 +67,10 @@ def main() -> int:
                 return {"out": out, "lse": lse, "dq": grads[0], "dk": grads[1],
                         "dv": grads[2], "dtable": grads[3].float()}
 
-            # the launch counters that move name the instances (an older
-            # tree may lack the newer ones)
-            before = {c: getattr(fa, c, 0) for c in COUNTERS}
+            # the launch counts that move name the instances
+            before = dict(_native.launches)
             first = call()
-            moved = [c for c in COUNTERS if getattr(fa, c, 0) != before[c]]
+            moved = [k for k, v in _native.launches.items() if v != before[k]]
             torch.cuda.synchronize()
             finite = all(bool(t.float().isfinite().all()) for t in first.values())
             worst = {name: 0.0 for name in first}

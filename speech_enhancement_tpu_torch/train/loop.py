@@ -36,7 +36,7 @@ update), as the JAX loop does.
 Under a profiler session (``utils.profiling``) each step's body is a span
 ``se.train.step`` (its id ``(epoch, idx)``, ending before ``on_step``),
 holding ``se.train.h2d`` (the batch to the card), ``se.train.label_wait``
-(the interval ``EpochStats.label_wait`` adds), ``se.train.disc_step``
+(its length is what ``EpochStats.label_wait`` adds), ``se.train.disc_step``
 (one discriminator update) and ``se.train.sync`` (each loss read back to
 the host); a label job is a span ``se.train.labels`` on its thread, its
 id the step whose estimate it scores.
@@ -65,7 +65,7 @@ from speech_enhancement_tpu_torch.train.gan import (
 )
 from speech_enhancement_tpu_torch.train.state import GanTrainState
 from speech_enhancement_tpu_torch.utils.logging import AverageMeter
-from speech_enhancement_tpu_torch.utils.profiling import span
+from speech_enhancement_tpu_torch.utils.profiling import span, timed_span
 
 # step mode -> discriminator lag (steps by which its update is deferred)
 DISC_LAG = {"two-phase": 0, "async": 1, "pipelined": 2, "fused": 0}
@@ -172,10 +172,9 @@ def run_gan_epoch(state: GanTrainState, batches: Iterable, *, epoch: int, seed: 
             stats.disc.update(stats.disc_losses[-1], b)
 
     def wait_for_labels(job):
-        with span("se.train.label_wait"):
-            t0 = time.perf_counter()
+        with timed_span("se.train.label_wait") as waited:
             q_est = job()
-            stats.label_wait += time.perf_counter() - t0
+        stats.label_wait += waited.seconds
         return q_est
 
     def apply_oldest():

@@ -7,7 +7,8 @@
   beside it;
 * :func:`span` and :func:`count`: the program's spans and counters at its
   layer boundaries, kept in memory while a profiler session records and
-  read back with :func:`spans` and :func:`counts`.  The store grows for as
+  read back with :func:`spans` and :func:`counts` (:func:`timed_span`
+  also gives the enclosed time while tracing is off).  The store grows for as
   long as sessions record: :func:`trace` empties it as its session starts,
   and the owner of any other session calls :func:`clear`;
 * :func:`device_memory_stats`: ``torch.cuda.memory_stats`` of every visible
@@ -95,8 +96,28 @@ class _Off:
 _OFF = _Off()
 
 
-class _On:
-    __slots__ = ("name", "id", "seq", "parent", "start", "thread", "function")
+class _Clock:
+    """Two stamps on the spans' clock: what :func:`timed_span` gives while
+    tracing is off."""
+
+    __slots__ = ("start", "end")
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.time_ns()
+        return False
+
+    @property
+    def seconds(self) -> float:
+        """The time from the ``with``'s entry to its exit."""
+        return (self.end - self.start) * 1e-9
+
+
+class _On(_Clock):
+    __slots__ = ("name", "id", "seq", "parent", "thread", "function")
 
     def __init__(self, name: str, id: Any):
         self.name, self.id = name, id
@@ -120,9 +141,9 @@ class _On:
 
     def __exit__(self, *exc):
         self.function.__exit__(*exc)
-        end = time.time_ns()
+        self.end = time.time_ns()
         _local.state[0].pop()
-        _spans.append(Span(self.name, self.start, end, self.thread, self.parent, self.id,
+        _spans.append(Span(self.name, self.start, self.end, self.thread, self.parent, self.id,
                            self.seq))
         return False
 
@@ -134,6 +155,14 @@ def span(name: str, id: Any = None):
     if not tracing():
         return _OFF
     return _On(name, id)
+
+
+def timed_span(name: str, id: Any = None):
+    """:func:`span`, timed also while tracing is off: after the ``with``, the
+    object's ``seconds`` is the enclosed time.  While tracing it is the
+    stored span's length, from the same two stamps, so that a sum of the
+    seconds equals the spans' total."""
+    return _On(name, id) if tracing() else _Clock()
 
 
 def count(name: str, n: float) -> None:

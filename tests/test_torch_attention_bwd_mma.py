@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from speech_enhancement_tpu.ops import pallas_attention as pa
+from speech_enhancement_tpu_torch.ops import _native
 from speech_enhancement_tpu_torch.ops import fused_attention as fa
 
 # one intra-op thread: the pytest-xdist workers share the cores
@@ -219,11 +220,11 @@ def test_backward_dispatch_refuses_what_no_kernel_takes(dtype, d):
 
 
 def test_backward_takes_the_plain_version_on_cpu_for_either_instance():
-    """CPU tensors never launch: no backward counter moves."""
+    """CPU tensors never launch: no count moves."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, table, g = (t.to(dtype) for t in _operands(9, 2, 21, 2, 16, 8))
-        before = (fa.bwd_launches, fa.bwd_mma_launches, fa.bwd_tf32_launches)
+        before = dict(_native.launches)
         got = fa.fused_shaw_attention_bwd(q, k, v, table, None, None, g, 8)
-        assert (fa.bwd_launches, fa.bwd_mma_launches, fa.bwd_tf32_launches) == before
+        assert _native.launches == before
         for name, a, w in zip(NAMES, got, fa.shaw_attention_bwd_reference(q, k, v, table, g, 8)):
             assert torch.equal(a, w), name

@@ -32,6 +32,7 @@ import torch
 from speech_enhancement_tpu.ops import pallas_attention as pa
 from test_torch_attention_bwd_mma import inverse_skew, transposed_bias
 from test_torch_attention_tf32 import k1_tf32_copy, split_products
+from speech_enhancement_tpu_torch.ops import _native
 from speech_enhancement_tpu_torch.ops import fused_attention as fa
 
 # one intra-op thread: the pytest-xdist workers share the cores
@@ -160,11 +161,11 @@ def test_single_tf32_product_breaks_the_bound():
 
 
 def test_fp32_backward_takes_the_plain_version_on_cpu():
-    """CPU tensors never launch: no backward counter moves."""
+    """CPU tensors never launch: no count moves."""
     q, k, v, table, g = (torch.from_numpy(a) for a in _operands(8, 2, 33, 2, 32, 8))
-    before = (fa.bwd_launches, fa.bwd_mma_launches, fa.bwd_tf32_launches)
+    before = dict(_native.launches)
     got = fa.fused_shaw_attention_bwd(q, k, v, table, None, None, g, 8)
-    assert (fa.bwd_launches, fa.bwd_mma_launches, fa.bwd_tf32_launches) == before
+    assert _native.launches == before
     for name, a, w in zip(NAMES, got, fa.shaw_attention_bwd_reference(q, k, v, table, g, 8)):
         assert torch.equal(a, w), name
 

@@ -29,6 +29,7 @@ import torch
 
 from speech_enhancement_tpu.ops.pallas_attention import fused_shaw_attention as jax_fused
 from test_torch_stft_tf32 import tf32  # the kernels' rounding, tested there
+from speech_enhancement_tpu_torch.ops import _native
 from speech_enhancement_tpu_torch.ops import fused_attention as fa
 
 # one intra-op thread: the pytest-xdist workers share the cores
@@ -143,11 +144,11 @@ def test_dispatch_refuses_an_unknown_direction():
 
 
 def test_fp32_wrapper_takes_the_plain_version_on_cpu():
-    """CPU tensors never launch: no forward counter moves."""
+    """CPU tensors never launch: no count moves."""
     q, k, v, table = (torch.from_numpy(a) for a in _operands(6, 2, 33, 2, 16, 8))
-    before = (fa.launches, fa.mma_launches, fa.tf32_launches)
+    before = dict(_native.launches)
     got, lse = fa.fused_shaw_attention_fwd(q, k, v, table, 8, 0.25, with_lse=True)
-    assert (fa.launches, fa.mma_launches, fa.tf32_launches) == before
+    assert _native.launches == before
     assert lse is None
     assert torch.equal(got, fa.shaw_attention_reference(q, k, v, table, 8, 0.25))
 

@@ -23,6 +23,7 @@ from torch import nn
 from speech_enhancement_tpu_torch.models import TSCNet, conformer
 from speech_enhancement_tpu_torch.models.conformer import ConvModule
 from speech_enhancement_tpu_torch.models.layers import BatchNorm1d
+from speech_enhancement_tpu_torch.ops import _native
 from speech_enhancement_tpu_torch.ops import fused_conv_module as fcm
 from speech_enhancement_tpu_torch.utils import profiling
 
@@ -71,10 +72,10 @@ def test_plain_version_is_the_modules_middle(dtype, layout, dim, kernel_size):
     u = _u(3, 4 * dim, 37, layout, dtype)
     conv, norm = m.net[4].conv, m.net[5]
     want = _eager(m, u)
-    launches = fcm.launches
+    launches = _native.launches["glu_conv_swish"]
     with torch.no_grad():
         got = fcm.glu_conv_swish(u, conv, norm)
-    assert fcm.launches == launches  # the CPU takes the plain version
+    assert _native.launches["glu_conv_swish"] == launches  # the CPU takes the plain version
     assert got.dtype == dtype and got.shape == (3, 2 * dim, 37)
     assert torch.equal(got, want)
     assert torch.equal(fcm.glu_conv_swish_reference(u, conv, norm), want)
@@ -173,26 +174,26 @@ def _refusals():
 @pytest.mark.parametrize("case", range(13))
 def test_wrapper_refuses_what_the_kernel_cannot_take(case):
     name, u, conv, norm, match = _refusals()[case]
-    launches = fcm.launches
+    launches = _native.launches["glu_conv_swish"]
     with torch.no_grad(), pytest.raises(ValueError, match=match):
         fcm.glu_conv_swish(u, conv, norm)
-    assert fcm.launches == launches, name
+    assert _native.launches["glu_conv_swish"] == launches, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_counters_count_under_a_profiler_session_only(dtype):
     u = _u(3, 256, 50, "rows", dtype)
-    launches = fcm.launches
+    launches = _native.launches["glu_conv_swish"]
     profiling.clear()
     fcm.count_launch(u)
-    assert profiling.counts() == [] and fcm.launches == launches + 1
+    assert profiling.counts() == [] and _native.launches["glu_conv_swish"] == launches + 1
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         fcm.count_launch(u)
         got = [(c.name, c.n) for c in profiling.counts()]
     profiling.clear()
     # u read once (3 x 256 x 50), its half written once
     assert got == [("convmod.launches", 1), ("convmod.bytes", 3 * 384 * 50 * u.element_size())]
-    assert fcm.launches == launches + 2
+    assert _native.launches["glu_conv_swish"] == launches + 2
 
 
 # ------------------------------------------------------------------ card
@@ -224,12 +225,12 @@ def test_kernel_matches_the_plain_version(cuda, dtype, layout, n):
     m = _module(64, dtype=dtype, device=cuda)
     conv, norm = m.net[4].conv, m.net[5]
     u = _u(5, 256, n, layout, dtype, seed=n, device=cuda)
-    launches = fcm.launches
+    launches = _native.launches["glu_conv_swish"]
     with torch.no_grad():
         got = fcm.glu_conv_swish(u, conv, norm)
         want = fcm.glu_conv_swish_reference(u, conv, norm)
     torch.cuda.synchronize()
-    assert fcm.launches == launches + 1
+    assert _native.launches["glu_conv_swish"] == launches + 1
     assert got.dtype == dtype and got.shape == (5, 128, n) and got.is_contiguous()
     assert _rel_rms(got, want) <= TOLS[dtype]
 
@@ -252,8 +253,8 @@ def test_conv_module_takes_the_kernel_without_autograd(cuda, dtype):
     m = _module(64, dtype=dtype, device=cuda)
     x = torch.randn(4, 301, 64, device=cuda).to(dtype)
     want = m(x)  # autograd on: the eager layers
-    launches = fcm.launches
+    launches = _native.launches["glu_conv_swish"]
     with torch.no_grad():
         got = m.after_norm(m.net[0](x))
-    assert fcm.launches == launches + 1
+    assert _native.launches["glu_conv_swish"] == launches + 1
     assert _rel_rms(got, want) <= TOLS[dtype]

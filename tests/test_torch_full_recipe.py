@@ -222,8 +222,9 @@ def test_chip_smoke_counts_the_childrens_launches(tmp_path):
     script = types.SimpleNamespace(subprocess=subprocess)  # a script module's view
     with chip_smoke.children_counted(script, str(tmp_path / "counts")) as children:
         assert script.subprocess is children
-        code = ("from speech_enhancement_tpu_torch.ops import fused_attention as fa\n"
-                "fa.mma_launches += 3\nfa.bwd_mma_launches += 2\n")
+        code = ("from speech_enhancement_tpu_torch.ops import _native\n"
+                "_native.launches['shaw_attention_fwd_tensor_core'] += 3\n"
+                "_native.launches['shaw_attention_bwd_tensor_core'] += 2\n")
         assert script.subprocess.run([sys.executable, "-c", code], cwd=REPO).returncode == 0
         helped = script.subprocess.run(
             [sys.executable, "-m", "speech_enhancement_tpu_torch.scripts.label_bias_study",
@@ -235,5 +236,6 @@ def test_chip_smoke_counts_the_childrens_launches(tmp_path):
         assert killed.wait() == -signal.SIGKILL
         got = children.launches()
     assert script.subprocess is subprocess
-    assert got["K1 tensor-core"] == 3 and got["K2 tensor-core"] == 2
+    assert got["shaw_attention_fwd_tensor_core"] == 3
+    assert got["shaw_attention_bwd_tensor_core"] == 2
     assert sum(got.values()) == 5 and len(os.listdir(tmp_path / "counts")) == 2

@@ -1,11 +1,14 @@
 """The build cache of the port's native code (``ops/_native.py``): a library
 loaded from ``_build/`` comes back with its compiler's log, a library
 without its log is rebuilt, and a g++ library's name depends on the
-target ``-march=native`` resolves to on the host."""
+target ``-march=native`` resolves to on the host.  The one launch count:
+each kernel of ``_native.KERNELS`` is counted by the wrappers of ``ops/``
+under its name, and by no other name."""
 
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
@@ -65,3 +68,17 @@ def test_gxx_library_name_depends_on_the_host_target(monkeypatch):
     monkeypatch.setattr(_native, "_gxx_target", ["x86_64\n  -march=  some-other-cpu"])
     _native.load_host("pesq", {})
     assert names[0] == names[1] != names[2]
+
+
+def test_wrappers_count_every_kernel_under_its_name():
+    ops = _native.CSRC.parent / "ops"
+    counted = [name for path in sorted(ops.glob("*.py"))
+               for name in re.findall(r'_native\.launches\["(\w+)"\] \+= 1', path.read_text())]
+    assert sorted(counted) == sorted(_native.KERNELS)
+    assert list(_native.launches) == list(_native.KERNELS)
+
+
+def test_clear_launches_zeroes_every_kernel(monkeypatch):
+    monkeypatch.setattr(_native, "launches", dict.fromkeys(_native.KERNELS, 3))
+    _native.clear_launches()
+    assert _native.launches == dict.fromkeys(_native.KERNELS, 0)

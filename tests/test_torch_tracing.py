@@ -114,6 +114,12 @@ def test_off_span_is_shared_and_count_stores_nothing():
     assert profiling.spans() == [] and profiling.counts() == []
 
 
+def test_off_timed_span_times_and_stores_nothing():
+    with profiling.timed_span("a") as timed:
+        time.sleep(0.01)
+    assert timed.seconds >= 0.01 and profiling.spans() == []
+
+
 def test_off_enhance_stores_nothing(enhancer, utterances):
     enhancer.enhance(utterances, batch_size=2)
     assert profiling.spans() == [] and profiling.counts() == []
@@ -239,7 +245,8 @@ def test_epoch_steps_labels_and_label_wait(step_mode):
     assert names["se.pesq"] == steps
     waited = sum(s.end - s.start for s in spans if s.name == "se.train.label_wait") * 1e-9
     assert names["se.train.label_wait"] == steps
-    assert waited == pytest.approx(stats.label_wait, abs=1e-3)
+    # EpochStats adds each span's own length (timed_span): equal up to rounding
+    assert waited == pytest.approx(stats.label_wait, rel=1e-9)
 
 
 @pytest.mark.parametrize("arch, passes", [("scp", 3), ("cmgan", 1)])
